@@ -8,16 +8,30 @@ script exits non-zero:
 
   1. device and toolchain: card name and power limit (nvidia-smi), torch
      and CUDA versions, triton and nvcc versions, ninja;
-  2. build every kernel of the path from the sources in the checkout;
-  3. each kernel against its plain PyTorch version on the card, with exact
-     integer equality (ties at the threshold, masked tails, ragged sizes,
-     several thresholds, a scene past 2^24 valid pixels), and its time per
-     launch at the main path's shape beside its bound;
-  4. the main path at full width: a synthetic SpaceNet7-layout test split
+  2. build every kernel of the paths from the sources in the checkout, one
+     nvcc per kernel, all started together;
+  3. each kernel against its plain PyTorch version on the card, and its time
+     per launch at the main path's shape beside its bound:
+       a. confusion counts, exact integer equality (ties at the threshold,
+          masked tails, ragged sizes, several thresholds, a scene past 2^24
+          valid pixels);
+       b. bn_stats at every BatchNorm shape of a full-width training step and
+          at ragged shapes, bf16 and f32, ``a is b`` and not, against the
+          plain version in float64 (|kernel - ref| <= 1e-5 · Σ|a·b| per
+          channel), and two launches on one input bit-equal; beside it the
+          one PyTorch call that computes the same sums
+          (``torch.batch_norm_backward_reduce``), as a yardstick;
+  4. the inference path at full width: a synthetic SpaceNet7-layout split
      of ~1000^2 scenes, ``configs/siamese.yaml`` (topology [64,128,256,512],
      6 channels per date, bf16), seeded random weights and BN statistics,
      ``evaluation.inference_loop`` — with the kernels' launch counts read
-     around it — then the checks of its output.
+     around it — then the checks of its output;
+  5. the training path at full width over the same split: ``trainers.
+     run_training`` (batch 8, 256^2 importance crops, flip and rot90, bf16
+     autocast, AdamW) with the kernels' launch counts read around it,
+     patches/s per log window, peak device memory, in-training
+     ``model_evaluation`` (the confusion kernel) and a checkpoint; then a
+     profile of one step, and a ``latest`` resume that takes one more step.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports only the port,
@@ -38,13 +52,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from multimodal_siamese_cd_tpu_torch import evaluation
+from multimodal_siamese_cd_tpu_torch import (checkpoints, evaluation, train_lib,
+                                             trainers, wandb_compat)
 from multimodal_siamese_cd_tpu_torch.config import load_cfg
 from multimodal_siamese_cd_tpu_torch.data.dataset import MultimodalCDDataset
+from multimodal_siamese_cd_tpu_torch.data.loader import TrainLoader, prefetch_to_device
 from multimodal_siamese_cd_tpu_torch.data.synthetic import generate_fixture_dataset
 from multimodal_siamese_cd_tpu_torch.metrics import MultiThresholdMetric
 from multimodal_siamese_cd_tpu_torch.models.factory import create_network
-from multimodal_siamese_cd_tpu_torch.ops import _build, confusion
+from multimodal_siamese_cd_tpu_torch.ops import _build, bn_stats, confusion
 from multimodal_siamese_cd_tpu_torch.train_lib import eval_forward
 
 # Peak memory rate (bytes/s) and fp32 non-tensor-core rate (op/s) by the
@@ -58,6 +74,16 @@ PEAKS = {
 MAIN_SCENES, MAIN_SIDE = 16, 1024          # one full eval group of 1024^2 scenes
 N_AOIS, AOI_SIDE = 20, 1000                # scenes 1000..1016 px pad to 1024:
                                            # one full group of 16, then 4
+# every BatchNorm input of a full-width training step (batch 8, 256^2 crops,
+# topology [64,128,256,512]): stem and Down1-4 on each date, Up4..Up1
+BN_SHAPES = [(8, 64, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64),
+             (8, 512, 32, 32), (8, 512, 16, 16), (8, 256, 32, 32),
+             (8, 128, 64, 64), (8, 64, 128, 128)]
+BN_RAGGED = [(1, 3, 17, 19), (1, 3, 256, 256), (2, 3, 10, 10), (3, 5, 7, 9),
+             (1, 3, 1, 1)]
+# training phase: 8 AOIs x 48 = 384 crops = 48 steps of 8 at batch 8, four
+# LOG_FREQ windows of 12 (the first is warm-up); 2 + 2 AOIs to validate/test
+TRAIN_AOIS, TRAIN_MULTIPLIER, TRAIN_LOG_FREQ = 8, 48, 12
 
 
 def log(*args) -> None:
@@ -90,9 +116,10 @@ def cuda_time_ms(fn, runs: int, inner: int = 1, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_breakdown(label: str, fn, top: int = 8) -> None:
+def profile_breakdown(label: str, fn, top: int = 8, match: str = "") -> None:
     """One profiled call of ``fn``: the device's busy share of the host
-    wall time and the kernels that take the most device time."""
+    wall time and the kernels that take the most device time (and the
+    total of those whose name holds ``match``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -113,6 +140,11 @@ def profile_breakdown(label: str, fn, top: int = 8) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / busy_us * 100:5.1f}% "
             f"{e.self_device_time_total / 1e3:8.2f} ms x{e.count:<4d} {e.key[:90]}")
+    if match:
+        hits = [e for e in kernels if match in e.key]
+        us = sum(e.self_device_time_total for e in hits)
+        log(f"  kernels named *{match}*: {us / busy_us * 100:.1f}% of device "
+            f"time, {us / 1e3:.2f} ms in {sum(e.count for e in hits)} launches")
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -148,15 +180,22 @@ def phase_device() -> dict:
 # -- phase 2 ------------------------------------------------------------------
 
 def phase_build() -> None:
+    """One nvcc per kernel, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    kernels = {"confusion": confusion._kernel, "bn_stats": bn_stats._kernel}
     t0 = time.perf_counter()
-    confusion._kernel()
-    info = _build.BUILD_INFO["confusion"]
-    log(f"build confusion: {info['seconds']:.2f} s nvcc, "
-        f"{time.perf_counter() - t0:.2f} s total, into {_build.BUILD_DIR} "
-        f"(route: nvcc -shared + ctypes)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        for fut in [pool.submit(fn) for fn in kernels.values()]:
+            fut.result()
+    log(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s "
+        f"wall, into {_build.BUILD_DIR} (route: nvcc -shared + ctypes)")
+    for name in kernels:
+        info = _build.BUILD_INFO[name]
+        log(f"build {name}: {info['seconds']:.2f} s nvcc")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -245,7 +284,114 @@ def phase_kernel(card: dict) -> dict:
             "library_ms": None}
 
 
+# -- phase 3b -----------------------------------------------------------------
+
+def phase_bn_stats(card: dict) -> dict:
+    """bn_stats against its plain version in float64, at every BN shape of a
+    full-width step and at ragged shapes; determinism; times at the largest
+    shape."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
+    worst, max_err = 0.0, 0.0
+    log("bn_stats vs plain in float64 (limit |kernel - ref| <= 1e-5 * "
+        "sum|a*b| per channel; two launches bit-equal):")
+    for shape in BN_SHAPES + BN_RAGGED:
+        for dtype in (torch.bfloat16, torch.float32):
+            a = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            b = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+            for same in (True, False):
+                bb = a if same else b
+                got = bn_stats.bn_stats(a, bb)
+                again = bn_stats.bn_stats(a, bb)
+                ref = bn_stats.bn_stats_reference(a, bb, torch.float64)
+                scale = (a.double().abs().sum(dim=(0, 2, 3)),
+                         (a.double() * bb.double()).abs().sum(dim=(0, 2, 3)))
+                ratio = max(float(((g.double() - r).abs() / (1e-5 * m + 1e-30)).max())
+                            for g, r, m in zip(got, ref, scale))
+                err = max(float((g.double() - r).abs().max())
+                          for g, r in zip(got, ref))
+                bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
+                worst, max_err = max(worst, ratio), max(max_err, err)
+                if ratio > 1.0 or not bitwise:
+                    raise AssertionError(
+                        f"bn_stats {shape} {dtype} same={same}: error ratio "
+                        f"{ratio:.3g} (limit 1), bit-equal {bitwise}")
+            log(f"  {shape} {str(dtype)[6:]}: a is b and a != b within limit, "
+                f"bit-equal")
+            del a, b
+    log(f"  largest error / limit over all cases: {worst * 1e-5:.3e} of "
+        f"sum|a*b| ({worst:.4f} of the limit); max |kernel - ref| {max_err:.3e}")
+
+    # time at the largest BN shape of the step (the stem and up1: 64 x 256^2)
+    shape = BN_SHAPES[0]
+    dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    c = shape[1]
+    s1 = torch.empty(c, device=dev)
+    s2 = torch.empty(c, device=dev)
+    chunks = -(-shape[0] * shape[2] * shape[3] // bn_stats.CHUNK)
+    partial = torch.empty(c * chunks * 2, device=dev)
+    back_ms = cuda_time_ms(lambda: bn_stats.launch(dy, x, s1, s2, partial),
+                           runs=25, inner=20)
+    fwd_ms = cuda_time_ms(lambda: bn_stats.launch(x, x, s1, s2, partial),
+                          runs=25, inner=20)
+    plain_ms = cuda_time_ms(lambda: bn_stats.bn_stats_reference(dy, x),
+                            runs=11, warmup=2)
+    zeros, ones = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    try:
+        lib = lambda: torch.batch_norm_backward_reduce(  # noqa: E731
+            dy, x, zeros, ones, None, True, False, False)
+        lib_out = lib()
+        lib_note = "bf16 inputs"
+    except RuntimeError as e:
+        dy32, x32 = dy.float(), x.float()
+        lib = lambda: torch.batch_norm_backward_reduce(  # noqa: E731
+            dy32, x32, zeros, ones, None, True, False, False)
+        lib_out = lib()
+        lib_note = f"rejected bf16 ({str(e).splitlines()[0][:80]}); timed on f32"
+    got = bn_stats.bn_stats(dy, x)
+    lib_diff = max(float((g - l.float()).abs().max()) for g, l in zip(got, lib_out[:2]))
+    library_ms = cuda_time_ms(lib, runs=25, inner=5)
+    bw, flops = peaks(card["name"])
+    numel = dy.numel()
+    out_bytes = 2 * c * 4
+    back_bytes, fwd_bytes = 2 * numel * 2 + out_bytes, numel * 2 + out_bytes
+    ops_ms = 3 * numel / flops * 1e3          # add + fma per element
+    back_bound = max(back_bytes / bw * 1e3, ops_ms)
+    fwd_bound = max(fwd_bytes / bw * 1e3, ops_ms)
+    log(f"bn_stats at {shape} bf16 on {card['smi']} (back-to-back launches, "
+        f"median of 25 x 20): backward (dy, x) {back_ms * 1e3:.1f} us, bound "
+        f"{back_bound * 1e3:.1f} us ({back_bytes / 1e6:.1f} MB at "
+        f"{bw / 1e12:.2f} TB/s; operations {ops_ms * 1e3:.2f} us), "
+        f"{back_bytes / back_ms / 1e6:.0f} GB/s; forward (x, x, read once) "
+        f"{fwd_ms * 1e3:.1f} us, bound {fwd_bound * 1e3:.1f} us, "
+        f"{fwd_bytes / fwd_ms / 1e6:.0f} GB/s")
+    log(f"  plain version {plain_ms * 1e3:.1f} us; torch.batch_norm_backward_"
+        f"reduce {library_ms * 1e3:.1f} us ({lib_note}; max |diff| vs kernel "
+        f"{lib_diff:.3e})")
+    del dy, x
+    torch.cuda.empty_cache()
+    return {"name": "bn_stats", "route": "cuda",
+            "source": "multimodal_siamese_cd_tpu_torch/ops/csrc/bn_stats.cu",
+            "replaces": "tools/bench_bn_reduce.py:35",
+            "launches": None, "max_abs_err": max_err, "ms": back_ms,
+            "plain_ms": plain_ms, "bound_ms": back_bound,
+            "bound_by": "bytes" if back_bytes / bw * 1e3 >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
 # -- phase 4 ------------------------------------------------------------------
+
+def write_split(root: Path) -> list:
+    aois = [f"smoke_aoi_{i}" for i in range(N_AOIS)]
+    t0 = time.perf_counter()
+    generate_fixture_dataset(root, seed=11, scene_size=(AOI_SIDE, AOI_SIDE),
+                             n_timestamps=3, aois={a: True for a in aois})
+    log(f"synthetic split: {N_AOIS} labeled AOIs, 3 timestamps, sides "
+        f"{AOI_SIDE}..{AOI_SIDE + 16} px, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return aois
+
 
 def _randomize_bn(model, gen: torch.Generator) -> None:
     """Random BN running statistics (default 0/1 would make BN the
@@ -258,161 +404,321 @@ def _randomize_bn(model, gen: torch.Generator) -> None:
                 buf.copy_(torch.empty(buf.shape).uniform_(0.5, 1.5, generator=gen))
 
 
-def phase_main_path(card: dict, kernel_row: dict, dev: torch.device) -> None:
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+def phase_main_path(card: dict, kernel_row: dict, dev: torch.device,
+                    root: Path, aois: list) -> None:
+    cfg = load_cfg("siamese")
+    cfg.PATHS.DATASET = str(root)
+    cfg.DATASET.TEST_IDS = aois
+    log(f"config siamese: {cfg.MODEL.TYPE} topology {list(cfg.MODEL.TOPOLOGY)} "
+        f"precision {cfg.TRAINER.get('PRECISION', 'bf16')} input "
+        f"{cfg.DATALOADER.INPUT_MODE}")
+    model = create_network(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    _randomize_bn(model, torch.Generator().manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: {n_params} params on {next(model.parameters()).device}")
+
+    # exactly as model_evaluation builds it (JAX evaluation.py:330-332)
+    ds = MultimodalCDDataset(cfg, "test", no_augmentations=True,
+                             dataset_mode="first_last",
+                             disable_multiplier=True, disable_unlabeled=True)
+    t0 = time.perf_counter()
+    wires = [ds.eval_wire(i) for i in range(len(ds))]   # builds the cache
+    log(f"scene cache built in {time.perf_counter() - t0:.1f} s; wire "
+        f"{wires[0]['x1'].shape} {wires[0]['x1'].dtype}")
+
+    # warm-up pass (cuDNN algorithm selection), not counted
+    evaluation.inference_loop(model, ds, device=dev)
+    torch.cuda.synchronize()
+
+    # ---- the main path, with the kernels' launch counts around it ----
+    confusion.confusion_counts.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = evaluation.inference_loop(model, ds, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = confusion.confusion_counts.launches
+    # ------------------------------------------------------------------
+    kernel_row["launches"] = launches
+    if launches < 1:
+        raise AssertionError("inference_loop never launched the "
+                             "confusion kernel")
+    f1, precision, recall = result["change"]
+    log(f"inference_loop: {len(ds)} scenes in {wall:.3f} s = "
+        f"{len(ds) / wall:.2f} scenes/s, confusion kernel launches "
+        f"{launches}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  F1 {f1:.6f}, precision {precision:.6f}, recall {recall:.6f}")
+    if not all(np.isfinite([f1, precision, recall])):
+        raise AssertionError("non-finite metrics")
+
+    # kernel counts == plain counts on the same card probabilities, group
+    # by group as the stream forms them; the summed counts reproduce
+    # inference_loop's metrics
+    m = MultiThresholdMetric([0.5])
+    group = evaluation.eval_group_limit(wires[0]["x1"].shape[1:])
+    for g0 in range(0, len(wires), group):
+        stack = {k: np.stack([w[k] for w in wires[g0:g0 + group]])
+                 for k in ("x1", "x2", "y", "valid")}
+        probs = eval_forward(model, torch.from_numpy(stack["x1"]).to(dev).float(),
+                             torch.from_numpy(stack["x2"]).to(dev).float())
+        n = probs.shape[0]
+        if probs.shape != (n, 1, MAIN_SIDE, MAIN_SIDE) or not torch.isfinite(probs).all():
+            raise AssertionError(f"bad probabilities {tuple(probs.shape)}")
+        args = (probs.reshape(n, -1),
+                torch.from_numpy(stack["y"]).to(dev).reshape(n, -1),
+                torch.from_numpy(stack["valid"]).to(dev).reshape(n, -1),
+                torch.tensor([0.5], device=dev))
+        got = confusion.confusion_counts(*args)
+        want = confusion.confusion_counts_plain(*args)
+        err = int((got - want).abs().max())
+        kernel_row["max_abs_err"] = max(kernel_row["max_abs_err"], err)
+        if err != 0:
+            raise AssertionError("kernel counts != plain counts on the "
+                                 "main path's probabilities")
+        m.add_counts(*want.cpu().numpy().astype(np.float64).sum(axis=0))
+        if g0 == 0:
+            first_group = (probs[0, 0].cpu().numpy(), n)
+        del probs, args, got, want
+    f1_plain = float(m.compute_f1()[0])
+    log(f"  kernel == plain counts on every group's card probabilities; "
+        f"F1 from plain counts {f1_plain:.6f} (|dF1| "
+        f"{abs(f1_plain - f1):.2e} vs inference_loop)")
+    if abs(f1_plain - f1) > 1e-3:  # two separate forwards of one group
+        raise AssertionError("inference_loop F1 disagrees with the plain counts")
+
+    # serving forward on one scene == the matching crop of the group
+    item = ds[0]
+    p_scene = evaluation.scene_probabilities(model, item, device=dev)
+    h, w = item["x_t1"].shape[:2]
+    p_group, n_group = first_group
+    d_serve = float(np.abs(p_scene - p_group[:h, :w]).max())
+    log(f"  scene_probabilities vs grouped forward crop ({h}x{w}): "
+        f"max |dp| = {d_serve:.3e} (bf16, batch 1 vs {n_group}; tolerance 2e-2)")
+    if p_scene.shape != (h, w) or d_serve > 2e-2:
+        raise AssertionError("serving forward disagrees with the group")
+
+    # bf16 autocast vs fp32 (no TF32) on one scene, for information
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    model.compute_dtype = torch.float32
+    p32 = evaluation.scene_probabilities(model, item, device=dev)
+    model.compute_dtype = torch.bfloat16
+    torch.backends.cudnn.allow_tf32 = tf32
+    log(f"  bf16 autocast vs fp32: max |dp| = "
+        f"{float(np.abs(p_scene - p32).max()):.3e} on one scene")
+
+    # one FULL eval group (16 x 1024^2) through the wire-path dispatch:
+    # ms per group and peak memory, for the group-size constants
+    gen = np.random.default_rng(2)
+    c = wires[0]["x1"].shape[0]
+    full = (gen.uniform(0, 1, (MAIN_SCENES, c, MAIN_SIDE, MAIN_SIDE)).astype(np.float16),
+            gen.uniform(0, 1, (MAIN_SCENES, c, MAIN_SIDE, MAIN_SIDE)).astype(np.float16),
+            (gen.uniform(size=(MAIN_SCENES, MAIN_SIDE, MAIN_SIDE)) > 0.9).astype(np.uint8),
+            np.ones((MAIN_SCENES, MAIN_SIDE, MAIN_SIDE), np.uint8))
+    thr = torch.tensor([0.5], device=dev)
+    evaluation._eval_wire_counts(model, *full, thr, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        counts = evaluation._eval_wire_counts(model, *full, thr, dev)
+        counts.cpu()
+        times.append(time.perf_counter() - t0)
+    group_ms = statistics.median(times) * 1e3
+    log(f"full group {MAIN_SCENES} x {MAIN_SIDE}^2 (bf16, {card['smi']}): "
+        f"{group_ms:.1f} ms/group (host clock, median of 3) = "
+        f"{MAIN_SCENES / group_ms * 1e3:.2f} scenes/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB")
+    profile_breakdown(f"full group {MAIN_SCENES} x {MAIN_SIDE}^2",
+                      lambda: evaluation._eval_wire_counts(
+                          model, *full, thr, dev).cpu())
+    profile_breakdown(f"inference_loop over {len(ds)} scenes",
+                      lambda: evaluation.inference_loop(model, ds, device=dev))
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+def _train_cfg(root: Path, out: Path, aois: list):
+    cfg = load_cfg("siamese")
+    cfg.PATHS.DATASET = str(root)
+    cfg.PATHS.OUTPUT = str(out)
+    cfg.DATASET.TRAINING_IDS = aois[:TRAIN_AOIS]
+    cfg.DATASET.VALIDATION_IDS = aois[TRAIN_AOIS:TRAIN_AOIS + 2]
+    cfg.DATASET.TEST_IDS = aois[TRAIN_AOIS + 2:TRAIN_AOIS + 4]
+    cfg.DATALOADER.TRAINING_MULTIPLIER = TRAIN_MULTIPLIER
+    cfg.LOG_FREQ = TRAIN_LOG_FREQ
+    cfg.TRAINER.EPOCHS = 1
+    cfg.SAVE_CHECKPOINTS = [1]
+    return cfg
+
+
+def bn_per_step(topology) -> int:
+    """BatchNorms a siameseunet step applies: the stem and every Down on
+    each date (two each), and every Up (two each) — 28 at full width."""
+    return 2 * (2 + 2 * len(topology)) + 2 * len(topology)
+
+
+def _records(out: Path, name: str) -> list:
+    path = out / "logs" / f"{name}.jsonl"
+    return [r for r in map(json.loads, path.read_text().splitlines())
+            if "_event" not in r]
+
+
+def _reset_counts() -> None:
+    bn_stats.bn_stats.launches = 0
+    confusion.confusion_counts.launches = 0
+
+
+def _counts() -> tuple:
+    return bn_stats.bn_stats.launches, confusion.confusion_counts.launches
+
+
+def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
+                aois: list) -> None:
+    out = root / "train_out"
+    out.mkdir()
+    cfg = _train_cfg(root, out, aois)
+    a = cfg.AUGMENTATION
+    log(f"training: {cfg.MODEL.TYPE} topology {list(cfg.MODEL.TOPOLOGY)}, "
+        f"batch {cfg.TRAINER.BATCH_SIZE}, {a.CROP_SIZE}^2 "
+        f"{a.IMAGE_OVERSAMPLING_TYPE} crops, flip {a.RANDOM_FLIP}, rotate "
+        f"{a.RANDOM_ROTATE}, precision {cfg.TRAINER.get('PRECISION', 'bf16')}, "
+        f"loss {cfg.MODEL.LOSS_TYPE}, lr {cfg.TRAINER.LR}, "
+        f"{cfg.DATALOADER.NUM_WORKER} loader threads, LOG_FREQ {cfg.LOG_FREQ}")
+    wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl", out_dir=out)
     try:
-        root = Path(tmp.name)
-        aois = [f"smoke_aoi_{i}" for i in range(N_AOIS)]
-        t0 = time.perf_counter()
-        generate_fixture_dataset(root, seed=11, scene_size=(AOI_SIDE, AOI_SIDE),
-                                 n_timestamps=3, aois={a: True for a in aois})
-        log(f"synthetic split: {N_AOIS} labeled AOIs, 3 timestamps, sides "
-            f"{AOI_SIDE}..{AOI_SIDE + 16} px, written in "
-            f"{time.perf_counter() - t0:.1f} s")
-
-        cfg = load_cfg("siamese")
-        cfg.PATHS.DATASET = str(root)
-        cfg.DATASET.TEST_IDS = aois
-        log(f"config siamese: {cfg.MODEL.TYPE} topology {list(cfg.MODEL.TOPOLOGY)} "
-            f"precision {cfg.TRAINER.get('PRECISION', 'bf16')} input "
-            f"{cfg.DATALOADER.INPUT_MODE}")
-        model = create_network(cfg, device=dev,
-                               generator=torch.Generator().manual_seed(0))
-        _randomize_bn(model, torch.Generator().manual_seed(1))
-        n_params = sum(p.numel() for p in model.parameters())
-        log(f"model: {n_params} params on {next(model.parameters()).device}")
-
-        # exactly as model_evaluation builds it (JAX evaluation.py:330-332)
-        ds = MultimodalCDDataset(cfg, "test", no_augmentations=True,
-                                 dataset_mode="first_last",
-                                 disable_multiplier=True, disable_unlabeled=True)
-        t0 = time.perf_counter()
-        wires = [ds.eval_wire(i) for i in range(len(ds))]   # builds the cache
-        log(f"scene cache built in {time.perf_counter() - t0:.1f} s; wire "
-            f"{wires[0]['x1'].shape} {wires[0]['x1'].dtype}")
-
-        # warm-up pass (cuDNN algorithm selection), not counted
-        evaluation.inference_loop(model, ds, device=dev)
+        # ---- the training path, with the kernels' launch counts around it --
         torch.cuda.synchronize()
-
-        # ---- the main path, with the kernels' launch counts around it ----
-        confusion.confusion_counts.launches = 0
         torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
         t0 = time.perf_counter()
-        result = evaluation.inference_loop(model, ds, device=dev)
+        trainers.run_training(cfg, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = confusion.confusion_counts.launches
-        # ------------------------------------------------------------------
-        kernel_row["launches"] = launches
-        if launches < 1:
-            raise AssertionError("inference_loop never launched the "
-                                 "confusion kernel")
-        f1, precision, recall = result["change"]
-        log(f"inference_loop: {len(ds)} scenes in {wall:.3f} s = "
-            f"{len(ds) / wall:.2f} scenes/s, confusion kernel launches "
-            f"{launches}, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        log(f"  F1 {f1:.6f}, precision {precision:.6f}, recall {recall:.6f}")
-        if not all(np.isfinite([f1, precision, recall])):
-            raise AssertionError("non-finite metrics")
-
-        # kernel counts == plain counts on the same card probabilities, group
-        # by group as the stream forms them; the summed counts reproduce
-        # inference_loop's metrics
-        m = MultiThresholdMetric([0.5])
-        group = evaluation.eval_group_limit(wires[0]["x1"].shape[1:])
-        for g0 in range(0, len(wires), group):
-            stack = {k: np.stack([w[k] for w in wires[g0:g0 + group]])
-                     for k in ("x1", "x2", "y", "valid")}
-            probs = eval_forward(model, torch.from_numpy(stack["x1"]).to(dev).float(),
-                                 torch.from_numpy(stack["x2"]).to(dev).float())
-            n = probs.shape[0]
-            if probs.shape != (n, 1, MAIN_SIDE, MAIN_SIDE) or not torch.isfinite(probs).all():
-                raise AssertionError(f"bad probabilities {tuple(probs.shape)}")
-            args = (probs.reshape(n, -1),
-                    torch.from_numpy(stack["y"]).to(dev).reshape(n, -1),
-                    torch.from_numpy(stack["valid"]).to(dev).reshape(n, -1),
-                    torch.tensor([0.5], device=dev))
-            got = confusion.confusion_counts(*args)
-            want = confusion.confusion_counts_plain(*args)
-            err = int((got - want).abs().max())
-            kernel_row["max_abs_err"] = max(kernel_row["max_abs_err"], err)
-            if err != 0:
-                raise AssertionError("kernel counts != plain counts on the "
-                                     "main path's probabilities")
-            m.add_counts(*want.cpu().numpy().astype(np.float64).sum(axis=0))
-            if g0 == 0:
-                first_group = (probs[0, 0].cpu().numpy(), n)
-            del probs, args, got, want
-        f1_plain = float(m.compute_f1()[0])
-        log(f"  kernel == plain counts on every group's card probabilities; "
-            f"F1 from plain counts {f1_plain:.6f} (|dF1| "
-            f"{abs(f1_plain - f1):.2e} vs inference_loop)")
-        if abs(f1_plain - f1) > 1e-3:  # two separate forwards of one group
-            raise AssertionError("inference_loop F1 disagrees with the plain counts")
-
-        # serving forward on one scene == the matching crop of the group
-        item = ds[0]
-        p_scene = evaluation.scene_probabilities(model, item, device=dev)
-        h, w = item["x_t1"].shape[:2]
-        p_group, n_group = first_group
-        d_serve = float(np.abs(p_scene - p_group[:h, :w]).max())
-        log(f"  scene_probabilities vs grouped forward crop ({h}x{w}): "
-            f"max |dp| = {d_serve:.3e} (bf16, batch 1 vs {n_group}; tolerance 2e-2)")
-        if p_scene.shape != (h, w) or d_serve > 2e-2:
-            raise AssertionError("serving forward disagrees with the group")
-
-        # bf16 autocast vs fp32 (no TF32) on one scene, for information
-        tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        model.compute_dtype = torch.float32
-        p32 = evaluation.scene_probabilities(model, item, device=dev)
-        model.compute_dtype = torch.bfloat16
-        torch.backends.cudnn.allow_tf32 = tf32
-        log(f"  bf16 autocast vs fp32: max |dp| = "
-            f"{float(np.abs(p_scene - p32).max()):.3e} on one scene")
-
-        # one FULL eval group (16 x 1024^2) through the wire-path dispatch:
-        # ms per group and peak memory, for the group-size constants
-        gen = np.random.default_rng(2)
-        c = wires[0]["x1"].shape[0]
-        full = (gen.uniform(0, 1, (MAIN_SCENES, c, MAIN_SIDE, MAIN_SIDE)).astype(np.float16),
-                gen.uniform(0, 1, (MAIN_SCENES, c, MAIN_SIDE, MAIN_SIDE)).astype(np.float16),
-                (gen.uniform(size=(MAIN_SCENES, MAIN_SIDE, MAIN_SIDE)) > 0.9).astype(np.uint8),
-                np.ones((MAIN_SCENES, MAIN_SIDE, MAIN_SIDE), np.uint8))
-        thr = torch.tensor([0.5], device=dev)
-        evaluation._eval_wire_counts(model, *full, thr, dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            counts = evaluation._eval_wire_counts(model, *full, thr, dev)
-            counts.cpu()
-            times.append(time.perf_counter() - t0)
-        group_ms = statistics.median(times) * 1e3
-        log(f"full group {MAIN_SCENES} x {MAIN_SIDE}^2 (bf16, {card['smi']}): "
-            f"{group_ms:.1f} ms/group (host clock, median of 3) = "
-            f"{MAIN_SCENES / group_ms * 1e3:.2f} scenes/s; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
-            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB")
-        profile_breakdown(f"full group {MAIN_SCENES} x {MAIN_SIDE}^2",
-                          lambda: evaluation._eval_wire_counts(
-                              model, *full, thr, dev).cpu())
-        profile_breakdown(f"inference_loop over {len(ds)} scenes",
-                          lambda: evaluation.inference_loop(model, ds, device=dev))
+        bn_launches, conf_launches = _counts()
+        # --------------------------------------------------------------------
+        peak_run = torch.cuda.max_memory_allocated()
     finally:
-        tmp.cleanup()
+        wandb_compat.finish()
+    records = _records(out, cfg.NAME)
+    windows = [r for r in records if "train_time" in r]
+    steps = windows[-1]["step"] if windows else 0
+    rows["bn_stats"]["launches"] = bn_launches
+    expect = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)   # forward + backward
+    log(f"run_training: {steps} steps in {wall:.1f} s wall (with its evals); "
+        f"launches bn_stats {bn_launches} ({bn_launches / max(steps, 1):.1f} per "
+        f"step, expected {expect}), confusion {conf_launches}; peak "
+        f"device memory {peak_run / 2**30:.2f} GiB (training steps and eval "
+        f"groups)")
+    if bn_launches != expect * steps or steps == 0:
+        raise AssertionError(f"bn_stats launched {bn_launches} times in {steps} "
+                             f"steps, expected {expect} per step")
+    if conf_launches < 1:
+        raise AssertionError("model_evaluation never launched the confusion kernel")
+    patches = []
+    for r in windows:
+        rate = cfg.LOG_FREQ * cfg.TRAINER.BATCH_SIZE / r["train_time"]
+        patches.append(rate)
+        log(f"  window to step {r['step']}: loss {r['loss']:.6f}, train_time "
+            f"{r['train_time']:.3f} s = {rate:.2f} patches/s, window time "
+            f"{r['time']:.3f} s")
+        if not np.isfinite(r["loss"]):
+            raise AssertionError(f"non-finite loss {r['loss']}")
+    if len(patches) < 4:
+        raise AssertionError(f"expected 4 log windows, got {len(patches)}")
+    log(f"training throughput (host clock, batch {cfg.TRAINER.BATCH_SIZE} x "
+        f"{a.CROP_SIZE}^2, {card['smi']}): {statistics.median(patches[1:]):.2f} "
+        f"patches/s, median of windows 2-4 (window 1 is warm-up: "
+        f"{patches[0]:.2f})")
+    evals = [r for r in records if "test F1" in r]
+    log(f"  in-training evaluation: test F1 {evals[-1]['test F1']:.6f} at step "
+        f"{evals[-1]['step']}")
+
+    # the checkpoint: parameters moved away from the seeded initial weights
+    ckpt = checkpoints.checkpoint_file(cfg, 1)
+    model, optimizer, step = checkpoints.load_checkpoint(1, cfg, device=dev)
+    init = create_network(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(cfg.SEED))
+    with torch.no_grad():
+        moved = [float((p - q).abs().max()) for p, q in
+                 zip(model.parameters(), init.parameters())]
+        finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    log(f"checkpoint {ckpt.name} ({ckpt.stat().st_size / 2**20:.1f} MiB) at "
+        f"step {step}: {sum(m > 0 for m in moved)} of {len(moved)} parameter "
+        f"tensors changed (max |dw| {max(moved):.3e}), all finite {finite}")
+    if step != steps or sum(m > 0 for m in moved) < len(moved) // 2 or not finite:
+        raise AssertionError("checkpoint: wrong step, parameters unchanged or "
+                             "not finite")
+    del init
+
+    # one step alone: device time, the training peak, a profile, 56 launches
+    step_fn = train_lib.make_supervised_train_step(model, optimizer, cfg)
+    loader = TrainLoader(MultimodalCDDataset(cfg, "training"),
+                         cfg.TRAINER.BATCH_SIZE, num_workers=0, seed=1)
+    batch = next(prefetch_to_device(loader, dev))
+    for _ in range(2):
+        step_fn(batch["stack"], batch["is_labeled"], step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    step_ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"],
+                                           step), runs=5, warmup=0)
+    per_step = bn_stats.bn_stats.launches / 5
+    log(f"one step on a staged batch (CUDA events, median of 5): "
+        f"{step_ms:.1f} ms = {cfg.TRAINER.BATCH_SIZE / step_ms * 1e3:.2f} "
+        f"patches/s of device time; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; bn_stats "
+        f"launches per step {per_step:g}")
+    if per_step != expect:
+        raise AssertionError(f"{per_step} bn_stats launches per step")
+    profile_breakdown("one training step",
+                      lambda: step_fn(batch["stack"], batch["is_labeled"], step),
+                      top=12, match="bn_stats")
+    del model, optimizer, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # resume from the latest checkpoint and take one more step (DEBUG)
+    cfg = _train_cfg(root, out, aois)
+    cfg.TRAINER.RESUME_CHECKPOINT = "latest"
+    cfg.TRAINER.EPOCHS = 2
+    cfg.DEBUG = True
+    wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl", out_dir=out)
+    try:
+        _reset_counts()
+        trainers.run_training(cfg, device=dev)
+        torch.cuda.synchronize()
+        bn_launches, conf_launches = _counts()
+    finally:
+        wandb_compat.finish()
+    last = _records(out, cfg.NAME)[-1]
+    log(f"resume 'latest' + one step (DEBUG): bn_stats launches {bn_launches}, "
+        f"confusion {conf_launches}; last eval at step {last['step']} (epoch "
+        f"{last['epoch']:.4f})")
+    if bn_launches != expect or last["step"] != steps + 1:
+        raise AssertionError("the resumed run did not take exactly one step "
+                             "from the checkpoint's")
 
 
 def main() -> None:
     card = phase_device()
     phase_build()
-    row = phase_kernel(card)
-    phase_main_path(card, row, torch.device("cuda"))
-    log('kernels: ["confusion_counts"]')
-    print(json.dumps({"kernels": [row]}))
+    rows = {"confusion_counts": phase_kernel(card),
+            "bn_stats": phase_bn_stats(card)}
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    try:
+        root = Path(tmp.name)
+        aois = write_split(root)
+        phase_main_path(card, rows["confusion_counts"], dev, root, aois)
+        phase_train(card, rows, dev, root, aois)
+    finally:
+        tmp.cleanup()
+    log(f"kernels: {json.dumps(list(rows))}")
+    print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

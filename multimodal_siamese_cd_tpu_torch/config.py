@@ -8,8 +8,8 @@ so the PyTorch package imports nothing of it. Contract:
     (fvcore ``load_yaml_with_base`` semantics; child keys win),
   * ``merge_from_list`` for ``KEY.SUBKEY value`` CLI override pairs; unknown
     keys raise unless listed in :data:`EXTENSION_KEYS`,
-  * ``load_cfg`` reads ``configs/{name}.yaml`` — the same files the JAX
-    package reads.
+  * ``setup_cfg`` / ``load_cfg`` read
+    ``configs/{name}.yaml`` — the same files the JAX package reads.
 
 YAML is loaded safely (a ``yaml.SafeLoader`` subclass) with YAML-1.2-style
 float resolution so a bare ``1e-4`` parses as float (see ``_ConfigLoader``).
@@ -262,6 +262,23 @@ def config_file_path(config_name: str) -> Path:
     if fallback.exists():
         return fallback
     return candidate  # let open() raise with the cwd-relative path
+
+
+def setup_cfg(args) -> CfgNode:
+    """CLI entry: merge config file, then trailing ``opts`` overrides, then
+    set NAME and PATHS (reference: experiment_manager.py:59-69)."""
+    cfg = new_config()
+    cfg.merge_from_file(config_file_path(args.config_file))
+    cfg.merge_from_list(args.opts)
+    cfg.NAME = args.config_file
+    cfg.PATHS.ROOT = str(Path.cwd())
+    if not Path(args.output_dir).exists():
+        raise FileNotFoundError(f"output dir missing: {args.output_dir}")
+    cfg.PATHS.OUTPUT = args.output_dir
+    if not Path(args.dataset_dir).exists():
+        raise FileNotFoundError(f"dataset dir missing: {args.dataset_dir}")
+    cfg.PATHS.DATASET = args.dataset_dir
+    return cfg
 
 
 def load_cfg(config_name: str) -> CfgNode:

@@ -270,18 +270,32 @@ class SceneCache:
         return out
 
     def load_raw_planar(self, aoi_id: str, modality: str,
-                        year: int, month: int) -> np.ndarray:
+                        year: int, month: int,
+                        window: tuple | None = None) -> np.ndarray:
         """Memmap-backed planar (C, H, W) scene in its storage dtype (no
         conversion, no copy); with the cache disabled, a fresh decode.
-        Returned as a base ndarray view: np.memmap's subclass plumbing buys
-        nothing here."""
+        ``window=(y0, y1, x0, x1)`` returns just that spatial slice (the
+        training crop path). Returned as a base ndarray view: np.memmap's
+        subclass plumbing buys nothing here."""
         if not self.enabled:
             img = self._decode(aoi_id, modality, year, month)
             if img.ndim == 2:
                 img = img[:, :, None]
+            if window is not None:
+                y0, y1, x0, x1 = window
+                img = img[y0:y1, x0:x1]
             return np.ascontiguousarray(img.transpose(2, 0, 1))
         arr, index = self._load_packed(aoi_id, modality)
-        return arr[index[(year, month)]].view(np.ndarray)
+        plane = arr[index[(year, month)]].view(np.ndarray)
+        if window is not None:
+            y0, y1, x0, x1 = window
+            return plane[:, y0:y1, x0:x1]
+        return plane
+
+    def scene_shape(self, aoi_id: str, modality: str, year: int, month: int) -> tuple:
+        """(H, W, C) — the layout-independent logical shape."""
+        c, h, w = self.load_raw_planar(aoi_id, modality, year, month).shape
+        return (h, w, c)
 
     @classmethod
     def from_cfg(cls, cfg, metadata: dict) -> "SceneCache":

@@ -1,16 +1,23 @@
-"""MultimodalCDDataset — the SpaceNet7 bitemporal S1+S2 dataset, the
-no-augmentation part (full scenes for evaluation and inference).
+"""MultimodalCDDataset — the SpaceNet7 bitemporal S1+S2 dataset.
 
 Same constructor and sampling semantics as the JAX package's dataset and
 the reference (utils/datasets.py:65-193): AOI split lists from the config,
 optional unlabeled AOIs, TRAINING_MULTIPLIER epoch inflation, per-sample
 timestamp-pair sampling ('first_last' or a random sorted pair),
 construction-only change labels (t1==0 ∧ t2==1) and the same sample dict
-keys. Items are (H, W, C) float32 numpy arrays; :meth:`eval_wire` gives the
-planar ``(C, Hp, Wp)`` wire, which is already NCHW.
+keys.
 
-Augmentation mode (random crops, flips, rotations, photometric jitter) is
-not ported yet: it lands with the training step, ROADMAP.md queue 1 item 4.
+* No-augmentation mode (evaluation, inference): items are (H, W, C)
+  float32 numpy arrays; :meth:`eval_wire` gives the planar ``(C, Hp, Wp)``
+  wire, which is already NCHW.
+* Training mode (the default): :meth:`get` crops one sample from the
+  memmapped scene cache into the planar wire stack ``(2·n_s1 + 2·n_s2 + 3,
+  S, S)`` — ``[s1_t1 | s1_t2 | s2_t1 | s2_t2 | buildings_t1 | buildings_t2
+  | change]``, float16 when the cache is float16 — byte for byte what the
+  JAX package's ``crop_only=True, return_stack=True`` dataset assembles
+  from the same generator. Flips, rotations and the photometric jitter run
+  on the card (:mod:`.augmentations`); the JAX package's host-side
+  post-crop pipeline has no counterpart here.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import geofiles
+from . import augmentations
 from .cache import SceneCache
 
 
@@ -27,11 +35,6 @@ class MultimodalCDDataset:
     def __init__(self, cfg, run_type: str, no_augmentations: bool = False,
                  dataset_mode: str = None, disable_multiplier: bool = False,
                  disable_unlabeled: bool = False):
-        if not no_augmentations:
-            raise NotImplementedError(
-                "augmentation mode (crops, flips, rotations) is not ported "
-                "yet: ROADMAP.md queue 1 item 4 (training step with losses "
-                "and augmentation); pass no_augmentations=True")
         self.cfg = cfg
         self.run_type = run_type
         self.root_path = Path(cfg.PATHS.DATASET)
@@ -92,13 +95,26 @@ class MultimodalCDDataset:
         change = np.logical_and(b1 == 0, b2 == 1)  # construction only
         return change.astype(np.float32)
 
-    # -- full-scene item (reference datasets.py:111-181) -------------------------
+    # -- item assembly (reference datasets.py:111-181) ----------------------------
     def __getitem__(self, index: int) -> dict:
+        return self.get(index)
+
+    def get(self, index: int, rng: np.random.Generator | None = None,
+            out: np.ndarray | None = None) -> dict:
+        """Like ``__getitem__`` but with an explicit generator: loader worker
+        threads pass per-batch generators, so an epoch is the same whatever
+        the thread schedule. ``out`` (training mode only): a preallocated
+        planar ``(C, S, S)`` row of the loader's batch buffer that the crop
+        stack is assembled into in place (see :meth:`stack_spec`)."""
+        rng = self.rng if rng is None else rng
         aoi_id = self.aoi_ids[index]
         labeled = self.labeled[index]
         timestamps = self._eligible_timestamps(aoi_id, labeled)
         (year_t1, month_t1), (year_t2, month_t2) = self._pick_pair(
-            timestamps, self.rng)
+            timestamps, rng)
+        if not self.no_augmentations:
+            return self._get_cropped(aoi_id, labeled, year_t1, month_t1,
+                                     year_t2, month_t2, rng, out)
 
         img_s1_t1 = self.cache.load(aoi_id, 's1', year_t1, month_t1)
         img_s2_t1 = self.cache.load(aoi_id, 's2', year_t1, month_t1)
@@ -139,6 +155,87 @@ class MultimodalCDDataset:
             item['y_sem_t1'] = np.ascontiguousarray(buildings[..., :1])
             item['y_sem_t2'] = np.ascontiguousarray(buildings[..., 1:])
         return item
+
+    def _get_cropped(self, aoi_id, labeled, year_t1, month_t1, year_t2,
+                     month_t2, rng, out=None) -> dict:
+        """Training crop through windowed cache reads (JAX package
+        ``dataset._get_cropped``, crop-only stack path). The crop origin is
+        drawn from the uint8 label planes; only S×S windows of the imagery
+        are read and converted."""
+        crop = self.cfg.AUGMENTATION.CROP_SIZE
+        importance = self.cfg.AUGMENTATION.IMAGE_OVERSAMPLING_TYPE != 'none'
+        if labeled:
+            # construction-only change over {0,1} rasters is b2 > b1; it is
+            # only ever read inside crop-sized windows, so it is computed
+            # per window
+            b1 = self.cache.load_raw_planar(aoi_id, 'buildings',
+                                            year_t1, month_t1)[0]
+            b2 = self.cache.load_raw_planar(aoi_id, 'buildings',
+                                            year_t2, month_t2)[0]
+            h, w = b1.shape
+
+            def change_window_count(y, x, s):
+                return np.count_nonzero(b2[y:y + s, x:x + s] > b1[y:y + s, x:x + s])
+        else:
+            h, w, _ = self.cache.scene_shape(aoi_id, 's1', year_t1, month_t1)
+            change_window_count = None
+
+        if h < crop or w < crop:
+            raise ValueError(
+                f"AOI {aoi_id} scene ({h}x{w}) is smaller than "
+                f"AUGMENTATION.CROP_SIZE={crop}; shrink the crop or exclude "
+                f"the AOI (batches must be uniformly sized)")
+        y0, x0 = augmentations.choose_crop_offset(
+            None, h, w, crop, rng, importance and labeled,
+            window_count=change_window_count)
+        s = crop
+        n_s1 = len(self.s1_band_indices)
+        n_s2 = len(self.s2_band_indices)
+        n_img = 2 * n_s1 + 2 * n_s2
+
+        def planar_win(modality, year, month):
+            return self.cache.load_raw_planar(aoi_id, modality, year, month,
+                                              window=(y0, y0 + s, x0, x0 + s))
+
+        shape, dtype = self.stack_spec()
+        if out is not None:
+            stack = out
+            # np.empty-backed: label planes not written below are zeroed
+            if not (labeled and self.include_building_labels):
+                stack[n_img:].fill(0)
+        else:
+            stack = np.zeros(shape, dtype)
+        stack[:n_s1] = planar_win('s1', year_t1, month_t1)
+        stack[n_s1:2 * n_s1] = planar_win('s1', year_t2, month_t2)
+        stack[2 * n_s1:2 * n_s1 + n_s2] = planar_win('s2', year_t1, month_t1)
+        stack[2 * n_s1 + n_s2:n_img] = planar_win('s2', year_t2, month_t2)
+        if labeled:
+            b1_win = b1[y0:y0 + s, x0:x0 + s]
+            b2_win = b2[y0:y0 + s, x0:x0 + s]
+            if self.include_building_labels:
+                stack[n_img] = b1_win
+                stack[n_img + 1] = b2_win
+            stack[n_img + 2] = b2_win > b1_win
+        return {
+            'stack': stack,
+            'aoi_id': aoi_id,
+            'year_t1': year_t1, 'month_t1': month_t1,
+            'year_t2': year_t2, 'month_t2': month_t2,
+            'is_labeled': labeled,
+        }
+
+    def stack_spec(self):
+        """``((C, S, S), dtype)`` of the training ``'stack'`` item, else
+        None (no-augmentation mode). The wire is float16 when the scene cache
+        is float16 (lossless there: labels are exact in f16 too), float32
+        otherwise. Non-None tells the loader it may preallocate one batch
+        buffer and assemble each sample in place."""
+        if self.no_augmentations:
+            return None
+        s = self.cfg.AUGMENTATION.CROP_SIZE
+        n_img = 2 * len(self.s1_band_indices) + 2 * len(self.s2_band_indices)
+        f16 = self.cache.enabled and np.dtype(self.cache.dtype) == np.float16
+        return (n_img + 3, s, s), (np.float16 if f16 else np.float32)
 
     def _split_imgs(self, imgs: np.ndarray):
         """Split the concatenated imagery block into (x_t1, x_t2) per

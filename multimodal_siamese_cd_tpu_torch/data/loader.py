@@ -1,0 +1,213 @@
+"""Batch loading with threaded prefetch and staging onto the card (the JAX
+package's ``data/loader.py``).
+
+* Worker threads build whole batches ahead of the consumer; the per-sample
+  work is numpy slicing out of the memmapped scene cache, which releases
+  the GIL.
+* Randomness is independent of the thread schedule: the epoch's shuffle
+  and each batch's crop draws come from ``np.random.SeedSequence([seed,
+  epoch])`` and ``SeedSequence([seed, epoch, batch])`` spawns, the JAX
+  package's schedule, so one seed gives both packages the same batches.
+* :func:`prefetch_to_device` copies each batch through pinned host memory
+  with ``non_blocking=True`` on a side stream, and the consumer's stream
+  waits on an event recorded after the copy.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+# the arrays prefetch_to_device moves, and how many staged batches may wait
+_DEVICE_KEYS = ("stack", "is_labeled")
+_PREFETCH_DEPTH = 2
+# batches a worker pool builds ahead of the consumer, beyond one per thread
+_LOOKAHEAD = 4
+
+
+def collate(items: list[dict]) -> dict:
+    """The per-sample metadata of a batch: ``is_labeled`` becomes a float32
+    mask vector, numeric scalars arrays, the rest lists. The ``stack`` key
+    is skipped: the samples were assembled into the batch array in place."""
+    batch: dict = {}
+    for key in items[0]:
+        if key == "stack":
+            continue
+        vals = [it[key] for it in items]
+        if key == "is_labeled":
+            batch[key] = np.asarray(vals, np.float32)
+        elif isinstance(vals[0], (int, float, np.integer, np.floating)):
+            batch[key] = np.asarray(vals)
+        else:
+            batch[key] = vals
+    return batch
+
+
+def _assemble_batch(dataset, seed: int, epoch: int, batch_idx: int,
+                    indices) -> dict:
+    """One collated batch, deterministic per (seed, epoch, batch): the
+    training dataset's samples are assembled straight into one ``(B, C, S,
+    S)`` buffer of its ``stack_spec()``."""
+    ss = np.random.SeedSequence([seed, epoch, batch_idx])
+    rngs = [np.random.default_rng(c) for c in ss.spawn(len(indices))]
+    shape, dtype = dataset.stack_spec()
+    stack = np.empty((len(indices),) + tuple(shape), dtype)
+    items = [dataset.get(int(i), rng, out=stack[k])
+             for k, (i, rng) in enumerate(zip(indices, rngs))]
+    batch = collate(items)
+    batch["stack"] = stack
+    return batch
+
+
+class TrainLoader:
+    """Epoch iterator over a training dataset, yielding collated numpy
+    batches: the reference trainer's DataLoader contract (``shuffle`` per
+    epoch, ``drop_last=True``, ``len()`` = full batches per epoch).
+    ``num_workers=0`` builds batches in the caller's thread (the DEBUG
+    path)."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 num_workers: int = 2, seed: int = 0,
+                 worker_type: str = "thread"):
+        if worker_type == "process":
+            raise NotImplementedError(
+                "DATALOADER.WORKER_TYPE process is not yet ported; use "
+                "thread (the default)")
+        if worker_type != "thread":
+            raise ValueError(f"worker_type must be thread|process, got {worker_type!r}")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = min(max(0, int(num_workers)), os.cpu_count() or 1)
+        self.seed = seed
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Set the epoch counter that seeds the next epoch's shuffle and
+        crops. A resumed run passes the number of epochs already trained,
+        so the data schedule continues where the unbroken run would be."""
+        self._epoch = int(epoch)
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def _batch_indices(self, epoch: int) -> list[np.ndarray]:
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(
+                np.random.SeedSequence([self.seed, epoch])).shuffle(order)
+        return [order[i:i + self.batch_size]
+                for i in range(0, len(self) * self.batch_size, self.batch_size)]
+
+    def __iter__(self) -> Iterator[dict]:
+        epoch = self._epoch
+        self._epoch += 1
+        batches = self._batch_indices(epoch)
+        if self.num_workers == 0:
+            for b, idxs in enumerate(batches):
+                yield _assemble_batch(self.dataset, self.seed, epoch, b, idxs)
+            return
+
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        futures = []
+        try:
+            window = self.num_workers + _LOOKAHEAD
+            for b in range(min(window, len(batches))):
+                futures.append(pool.submit(_assemble_batch, self.dataset,
+                                           self.seed, epoch, b, batches[b]))
+            for done in range(len(batches)):
+                batch = futures[done].result()
+                # a Future keeps its result: drop it so the epoch's batches
+                # are not all pinned in memory
+                futures[done] = None
+                nxt = len(futures)
+                if nxt < len(batches):
+                    futures.append(pool.submit(_assemble_batch, self.dataset,
+                                               self.seed, epoch, nxt,
+                                               batches[nxt]))
+                yield batch
+        finally:
+            # an abandoned epoch (exception, DEBUG break) leaves no queued
+            # batch builds running
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
+def prefetch_to_device(iterator: Iterable[dict], device):
+    """Stage upcoming batches on ``device`` ahead of consumption.
+
+    On the card a background thread pulls from ``iterator``, copies the
+    batch arrays into pinned host memory and from there to the card with
+    ``non_blocking=True`` on a side stream, and records an event; the
+    consumer's current stream waits on that event before the batch is
+    yielded (and the tensors are recorded on that stream, so the caching
+    allocator never hands their memory out early). At most
+    ``_PREFETCH_DEPTH`` staged batches wait in the queue. On the CPU the
+    arrays become tensors in the caller's thread."""
+    keys = _DEVICE_KEYS
+    device = torch.device(device)
+    if device.type != "cuda":
+        for batch in iterator:
+            yield {k: torch.from_numpy(v) if k in keys and isinstance(v, np.ndarray)
+                   else v for k, v in batch.items()}
+        return
+
+    copy_stream = torch.cuda.Stream(device)
+    q: queue.Queue = queue.Queue(maxsize=_PREFETCH_DEPTH)
+    end = object()
+    error: list = []
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            with torch.cuda.device(device), torch.cuda.stream(copy_stream):
+                for batch in iterator:
+                    staged = {k: torch.from_numpy(v).pin_memory().to(
+                                  device, non_blocking=True)
+                              if k in keys and isinstance(v, np.ndarray) else v
+                              for k, v in batch.items()}
+                    event = torch.cuda.Event()
+                    event.record(copy_stream)
+                    if not put((staged, event)):
+                        return
+        except BaseException as e:  # surfaced in the consumer
+            error.append(e)
+        finally:
+            put(end)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        consumer = torch.cuda.current_stream(device)
+        while True:
+            item = q.get()
+            if item is end:
+                if error:
+                    raise error[0]
+                return
+            staged, event = item
+            consumer.wait_event(event)
+            for v in staged.values():
+                if isinstance(v, torch.Tensor):
+                    v.record_stream(consumer)
+            yield staged
+    finally:
+        # the consumer stopped early (DEBUG break, an exception): stop the
+        # producer instead of letting it stage the rest of the epoch
+        stop.set()
+        thread.join(timeout=60)

@@ -9,9 +9,9 @@ the counts by a validity mask; scenes that share a padded shape run as one
 batched forward. The per-scene counts go through
 :func:`.ops.confusion.confusion_counts` — the CUDA kernel on the card.
 
-``inference_loop`` is what assessment_change.py calls; mesh / sharded eval,
-``model_evaluation`` (wandb logging) and the dual-task functions come in
-later slices.
+``inference_loop`` is what assessment_change.py calls; ``model_evaluation``
+is the trainer's in-training evaluation with its wandb logging. Mesh /
+sharded eval and the dual-task functions come in later slices.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import wandb_compat
+from .data.dataset import MultimodalCDDataset
 from .device import resolve_device
 from .metrics import MultiThresholdMetric
 from .ops.confusion import confusion_counts
@@ -221,6 +223,29 @@ def _summarize(measurer: MultiThresholdMetric):
     recalls = np.asarray(measurer.recall)
     best = int(f1s.argmax())
     return float(f1s[best]), float(precisions[best]), float(recalls[best])
+
+
+def model_evaluation(model, cfg, run_type: str, epoch: float, step: int,
+                     device=None) -> float:
+    """In-training eval + logging (reference evaluation.py:7-41; the JAX
+    package's ``model_evaluation``): the ``run_type`` split's full scenes,
+    first-last pairs, no augmentation, threshold 0.5. Logs
+    ``{run_type} F1/precision/recall`` with the step and epoch and returns
+    the F1."""
+    thresholds = np.linspace(0.5, 1, 1)
+    ds = MultimodalCDDataset(cfg, run_type, no_augmentations=True,
+                             dataset_mode='first_last', disable_multiplier=True,
+                             disable_unlabeled=True)
+    measurer = run_measurer(model, ds, thresholds, bucket=eval_bucket(cfg),
+                            device=device)
+    f1, precision, recall = _summarize(measurer)
+    wandb_compat.log({
+        f'{run_type} F1': f1,
+        f'{run_type} precision': precision,
+        f'{run_type} recall': recall,
+        'step': step, 'epoch': epoch,
+    })
+    return f1
 
 
 def inference_loop(model, ds, thresholds=None, bucket: int = EVAL_BUCKET,

@@ -14,7 +14,9 @@ of weights drives the reference, this package and (through
   * ``decoder.up_seq.upN.conv.conv.{j}.*``
   * ``outc.conv.*``                         1x1 Conv2d
 
-BatchNorm uses eps 1e-5 and torch momentum 0.1 (flax momentum 0.9).
+BatchNorm is :class:`.batchnorm.BatchNorm2d` (eps 1e-5, torch momentum 0.1
+== flax momentum 0.9): ``nn.BatchNorm2d``'s names and eval mode, flax's
+training semantics, its statistics through the ``bn_stats`` kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .batchnorm import BatchNorm2d
+
 
 class DoubleConv(nn.Module):
     """(3x3 conv -> BN -> ReLU) * 2 (reference networks.py:386-402);
@@ -34,10 +38,10 @@ class DoubleConv(nn.Module):
         super().__init__()
         self.conv = nn.Sequential(
             nn.Conv2d(in_ch, out_ch, 3, padding=1),
-            nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
+            BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=True),
             nn.Conv2d(out_ch, out_ch, 3, padding=1),
-            nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
+            BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=True),
         )
 

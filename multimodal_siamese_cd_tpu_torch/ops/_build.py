@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()          # guards _locks
+_locks: dict = {}                 # name -> lock: kernels build in parallel
 _loaded: dict = {}
 # name -> {"seconds": build wall time (0.0 when the library was already
 # built), "log": nvcc's output (ptxas register / shared-memory report)}
@@ -51,8 +52,11 @@ def nvcc_path() -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/{name}.cu`` if needed and return the loaded library."""
+    """Build ``csrc/{name}.cu`` if needed and return the loaded library.
+    Different kernels may build at once from different threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"

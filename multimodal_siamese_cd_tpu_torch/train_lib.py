@@ -1,12 +1,150 @@
-"""Forward passes. Slice 1 ports the eval forward only; the training steps
-come with the training slice (ROADMAP.md queue 1 item 4)."""
+"""Training core and forward passes (the JAX package's ``train_lib.py``).
+
+Slice 2 ports the supervised step: the wire stack is cast to the compute
+dtype and augmented on the device, the model runs in train mode (bf16
+autocast on the card, fp32 params; fp32 on the CPU), the loss is taken on
+fp32 logits, and AdamW updates the parameters in place. The dual-task and
+semi-supervised steps come with their slices.
+"""
 
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
+from . import losses
+from .data.augmentations import apply_augmentation, draw_augmentation
+from .models.factory import compute_dtype
+
+
+def make_optimizer(model, cfg) -> torch.optim.AdamW:
+    """AdamW with the reference's hyperparameters: lr from TRAINER.LR,
+    weight decay 0.01, betas (0.9, 0.999), eps 1e-8 (reference
+    train_supervised.py:32). Algebraically the JAX package's
+    ``optax.adamw``: both step ``p -= lr·(m̂ / (√v̂ + eps) + wd·p)``, with
+    decay on every parameter."""
+    return torch.optim.AdamW(model.parameters(), lr=cfg.TRAINER.LR,
+                             betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+
+
+# --------------------------------------------------------------------------
+# Batch stack layout
+# --------------------------------------------------------------------------
+
+def stack_layout(cfg) -> dict:
+    """Static channel offsets of the joint training stack:
+    [s1_t1 | s1_t2 | s2_t1 | s2_t2 | buildings_t1 | buildings_t2 | change].
+    The loader's planar ``(B, C, S, S)`` wire is already NCHW."""
+    n_s1 = len(cfg.DATALOADER.S1_BANDS)
+    n_s2 = len(cfg.DATALOADER.S2_BANDS)
+    return {
+        "n_s1": n_s1,
+        "n_s2": n_s2,
+        "n_img": 2 * n_s1 + 2 * n_s2,
+        "input_mode": cfg.DATALOADER.INPUT_MODE,
+    }
+
+
+def split_stack(stack: torch.Tensor, layout: dict):
+    """Split the NCHW stack into model inputs and float32 label planes
+    ``(x_t1, x_t2, y_change, y_sem_t1, y_sem_t2)``."""
+    n_s1, n_s2, n_img = layout["n_s1"], layout["n_s2"], layout["n_img"]
+    s1_t1 = stack[:, :n_s1]
+    s1_t2 = stack[:, n_s1:2 * n_s1]
+    s2_t1 = stack[:, 2 * n_s1:2 * n_s1 + n_s2]
+    s2_t2 = stack[:, 2 * n_s1 + n_s2:n_img]
+    # labels in f32: loss reductions must not accumulate in bf16
+    y_sem_t1 = stack[:, n_img:n_img + 1].float()
+    y_sem_t2 = stack[:, n_img + 1:n_img + 2].float()
+    y_change = stack[:, n_img + 2:n_img + 3].float()
+
+    mode = layout["input_mode"]
+    if mode == "s1":
+        x_t1, x_t2 = s1_t1, s1_t2
+    elif mode == "s2":
+        x_t1, x_t2 = s2_t1, s2_t2
+    else:
+        x_t1 = torch.cat([s1_t1, s2_t1], dim=1)
+        x_t2 = torch.cat([s1_t2, s2_t2], dim=1)
+    return (x_t1.contiguous(), x_t2.contiguous(), y_change, y_sem_t1,
+            y_sem_t2)
+
+
+def _autocast(dtype: torch.dtype, device: torch.device):
+    """bf16 autocast on the card when ``dtype`` is bf16, else nothing."""
+    if device.type == "cuda" and dtype == torch.bfloat16:
+        return torch.autocast("cuda", dtype=torch.bfloat16)
+    return contextlib.nullcontext()
+
+
+def augment_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The generator of one step's augmentation draws, a function of
+    (seed, step) alone — like the JAX package's ``fold_in(rng, step)``, so a
+    resumed run draws what the unbroken run would have."""
+    state = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state[0]) << 32 | int(state[1]))
+    return gen
+
+
+def augment(stack: torch.Tensor, cfg, layout: dict, dtype: torch.dtype,
+            generator: torch.Generator) -> torch.Tensor:
+    """Cast the wire to ``dtype`` and apply the config's per-sample device
+    augmentation (flips and rotations exact in any dtype; labels {0, 1}
+    exact in bf16)."""
+    a = cfg.AUGMENTATION
+    stack = stack.to(dtype)
+    decisions = draw_augmentation(
+        stack.shape[0], layout["n_img"], flip=bool(a.RANDOM_FLIP),
+        rotate=bool(a.RANDOM_ROTATE), color_shift=bool(a.COLOR_SHIFT),
+        gamma=bool(a.GAMMA_CORRECTION), generator=generator, dtype=dtype,
+        device=stack.device)
+    return apply_augmentation(stack, n_img_channels=layout["n_img"],
+                              **decisions)
+
+
+def make_supervised_train_step(model, optimizer, cfg):
+    """Supervised change-detection step (reference train_supervised.py:63-77;
+    the JAX package's ``make_supervised_train_step``):
+    ``loss = criterion(logits, y_change)``.
+
+    Returns ``step(stack, is_labeled, global_step) -> {"loss": tensor}``:
+    ``stack`` is the wire batch on the model's device, ``global_step`` the
+    number of steps taken before this one (with ``cfg.SEED`` it seeds the
+    augmentation). The step computes in the config's dtype on the card and
+    in float32 on the CPU. The loss is left on the device (no
+    synchronisation)."""
+    accum = int(cfg.TRAINER.get("GRAD_ACCUM", 1))
+    if accum > 1:
+        raise NotImplementedError(
+            f"TRAINER.GRAD_ACCUM={accum} is not yet ported (ROADMAP item 12)")
+    criterion = losses.get_criterion(cfg.MODEL.LOSS_TYPE)
+    layout = stack_layout(cfg)
+    device = next(model.parameters()).device
+    dtype = compute_dtype(cfg) if device.type == "cuda" else torch.float32
+
+    def step(stack: torch.Tensor, is_labeled, global_step: int) -> dict:
+        del is_labeled
+        model.train()
+        stack_aug = augment(stack, cfg, layout, dtype,
+                            augment_generator(cfg.SEED, global_step, device))
+        x_t1, x_t2, y_change, _, _ = split_stack(stack_aug, layout)
+        with _autocast(dtype, device):
+            logits = model(x_t1, x_t2)
+        loss = criterion(logits.float(), y_change)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach()}
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# Eval forward
+# --------------------------------------------------------------------------
 
 def eval_forward(model, x_t1: torch.Tensor, x_t2: torch.Tensor) -> torch.Tensor:
     """Eval-mode change probabilities ``(B, 1, H, W)`` float32 for NCHW
@@ -19,9 +157,6 @@ def eval_forward(model, x_t1: torch.Tensor, x_t2: torch.Tensor) -> torch.Tensor:
     it runs in fp32. An fp32 run on the card follows
     ``torch.backends.cudnn.allow_tf32`` for its convolutions."""
     model.eval()
-    bf16 = (x_t1.device.type == "cuda"
-            and getattr(model, "compute_dtype", torch.float32) == torch.bfloat16)
-    autocast = (torch.autocast("cuda", dtype=torch.bfloat16) if bf16
-                else contextlib.nullcontext())
-    with torch.inference_mode(), autocast:
+    dtype = getattr(model, "compute_dtype", torch.float32)
+    with torch.inference_mode(), _autocast(dtype, x_t1.device):
         return torch.sigmoid(model(x_t1, x_t2).float())

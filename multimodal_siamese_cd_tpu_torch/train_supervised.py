@@ -1,0 +1,47 @@
+"""Supervised change-detection training CLI of the port.
+
+Same contract as the reference train_supervised.py::
+
+    python -m multimodal_siamese_cd_tpu_torch.train_supervised \\
+        -c <config> -p <wandb-project> -o <out-dir> -d <dataset-dir> \\
+        [--device cpu] [KEY VALUE ...]
+
+Trains on the CUDA card unless ``--device`` names another torch device.
+"""
+
+import os
+import sys
+
+from multimodal_siamese_cd_tpu_torch import (experiment_manager, parsers,
+                                             trainers, wandb_compat)
+
+
+def main(argv=None) -> None:
+    args = parsers.training_argument_parser().parse_known_args(argv)[0]
+    cfg = experiment_manager.setup_cfg(args)
+
+    trainers.seed_everything(cfg.SEED)
+
+    wandb_compat.init(
+        name=cfg.NAME,
+        config=cfg,
+        entity='multimodal_siamese_cd',
+        project=args.project,
+        tags=['ssl', 'cd', 'siamese', 'spacenet7'],
+        mode='online' if not cfg.DEBUG else 'disabled',
+        out_dir=cfg.PATHS.OUTPUT,
+    )
+
+    try:
+        trainers.run_training(cfg, device=args.device)
+    except KeyboardInterrupt:
+        try:
+            sys.exit(0)
+        except SystemExit:
+            os._exit(0)
+    finally:
+        wandb_compat.finish()
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,184 @@
+"""Training loop (the JAX package's ``trainers.py``), supervised regime.
+
+``run_training(cfg)`` reproduces the reference entry point's
+control flow (train_supervised.py:17-116): epoch and step accounting, the
+DEBUG short-circuit, LOG_FREQ evaluation windows, the wandb metric names
+(``loss``, ``labeled_percentage``, ``time``, ``train_time``, ``step``,
+``epoch``) and the checkpoint epochs.
+
+The hot loop: threaded host loader (crop-only wire stacks) -> pinned,
+non-blocking copies on a side stream -> one step (augment + forward +
+backward + AdamW) on the card. Loss scalars stay on the card until a log
+window closes. Dual-task and semi-supervised regimes come in later slices.
+"""
+
+from __future__ import annotations
+
+import timeit
+
+import numpy as np
+import torch
+
+from . import checkpoints, evaluation, train_lib, wandb_compat
+from .data.dataset import MultimodalCDDataset
+from .data.loader import TrainLoader, prefetch_to_device
+from .device import resolve_device
+from .models.factory import create_network
+
+
+def print_run_config(cfg, device_desc: str) -> None:
+    """Stdout run-config table (reference train_supervised.py:18-28, minus
+    the tabulate dependency)."""
+    rows = [
+        ("CONFIG_NAME", cfg.NAME),
+        ("device", device_desc),
+        ("epochs", cfg.TRAINER.EPOCHS),
+        ("learning rate", cfg.TRAINER.LR),
+        ("batch size", cfg.TRAINER.BATCH_SIZE),
+    ]
+    width = max(len(k) for k, _ in rows)
+    print("+" + "-" * (width + 24) + "+")
+    for k, v in rows:
+        print(f"| {k:<{width}} : {v!s:<19} |")
+    print("+" + "-" * (width + 24) + "+", flush=True)
+
+
+def _create_or_resume(cfg, device: torch.device):
+    """Build model + AdamW, or restore them when ``TRAINER.RESUME_CHECKPOINT``
+    names an epoch. ``latest`` (or ``auto``) finds the newest
+    ``{NAME}_checkpoint{epoch}.pt`` in ``{OUTPUT}/networks/``; none is a cold
+    start. Fresh weights are drawn from ``cfg.SEED``. Returns (model,
+    optimizer, start_step)."""
+    resume = cfg.TRAINER.get('RESUME_CHECKPOINT', None)
+    if isinstance(resume, str) and resume.lower() in ('latest', 'auto'):
+        resume = checkpoints.latest_checkpoint_epoch(cfg)
+        if resume is None:
+            print('RESUME_CHECKPOINT latest: no checkpoint found; cold start')
+    if resume is not None and resume != '':
+        model, optimizer, step = checkpoints.load_checkpoint(resume, cfg,
+                                                             device=device)
+        print(f'resumed from checkpoint epoch {resume} (step {step})')
+        return model, optimizer, step
+    model = create_network(cfg, device=device,
+                           generator=torch.Generator().manual_seed(cfg.SEED))
+    return model, train_lib.make_optimizer(model, cfg), 0
+
+
+def _loader(cfg) -> TrainLoader:
+    ds = MultimodalCDDataset(cfg, 'training')
+    print(f'Dataset with {len(ds)} samples.')
+    return TrainLoader(
+        ds,
+        batch_size=cfg.TRAINER.BATCH_SIZE,
+        shuffle=cfg.DATALOADER.SHUFFLE,
+        num_workers=0 if cfg.DEBUG else cfg.DATALOADER.NUM_WORKER,
+        seed=cfg.SEED,
+        worker_type=cfg.DATALOADER.get('WORKER_TYPE', 'thread'),
+    )
+
+
+def _window_summary(sets: dict) -> dict:
+    """Reduce a log window's device scalars (one stack, one host fetch) to
+    the supervised wandb payload (metric names as the reference's)."""
+    losses = [float(v) for v in torch.stack(sets['loss']).cpu()] \
+        if sets['loss'] else []
+    return {'loss': float(np.mean(losses)) if losses else 0.0,
+            'labeled_percentage': 100}
+
+
+def run_training(cfg, device=None) -> None:
+    """Train ``cfg`` supervised; ``device`` defaults to the card."""
+    device = resolve_device(device)
+    print_run_config(cfg, str(device))
+    raw = cfg.TRAINER.get('STEPS_PER_EXECUTION', None)
+    if raw is not None:
+        print(f'STEPS_PER_EXECUTION={raw}: runs as 1 (one optimizer step per '
+              f'host dispatch; multi-step execution is not ported)')
+
+    model, optimizer, start_step = _create_or_resume(cfg, device)
+    step_fn = train_lib.make_supervised_train_step(model, optimizer, cfg)
+    loader = _loader(cfg)
+    steps_per_epoch = len(loader)
+    if steps_per_epoch == 0:
+        raise ValueError(
+            f"empty training loader: {len(loader.dataset)} samples < "
+            f"TRAINER.BATCH_SIZE={cfg.TRAINER.BATCH_SIZE} with drop_last — "
+            f"shrink the batch or raise DATALOADER.TRAINING_MULTIPLIER")
+    start_epoch = start_step // steps_per_epoch
+    if start_epoch:
+        print(f'resuming at epoch {start_epoch + 1} '
+              f'(step {start_step}, {steps_per_epoch} steps/epoch)')
+        # an unbroken run would have consumed start_epoch loader epochs
+        loader.set_epoch(start_epoch)
+    _run_epochs(cfg, model, optimizer, step_fn, loader, steps_per_epoch,
+                start_step, start_epoch, device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_epochs(cfg, model, optimizer, step_fn, loader, steps_per_epoch,
+                start_step, start_epoch, device) -> None:
+    epochs = cfg.TRAINER.EPOCHS
+    global_step = start_step
+    epoch_float = global_step / steps_per_epoch
+
+    def evaluate(run_type: str) -> None:
+        evaluation.model_evaluation(model, cfg, run_type, epoch_float,
+                                    global_step, device=device)
+
+    for epoch in range(start_epoch + 1, epochs + 1):
+        print(f'Starting epoch {epoch}/{epochs}.')
+        start = timeit.default_timer()
+        sets: dict[str, list] = {'loss': []}
+
+        for batch in prefetch_to_device(loader, device):
+            m = step_fn(batch['stack'], batch['is_labeled'], global_step)
+            for k in sets:
+                sets[k].append(m[k])
+            global_step += 1
+            epoch_float = global_step / steps_per_epoch
+
+            if cfg.DEBUG:   # one step, one test eval (train_supervised.py:84-86)
+                evaluate('test')
+                break
+
+            if global_step % cfg.LOG_FREQ == 0:
+                print(f'Logging step {global_step} (epoch {epoch_float:.2f}).')
+                _sync(device)  # the window's steps end before the evals start
+                eval_start = timeit.default_timer()
+                evaluate('training')
+                evaluate('validation')
+                eval_time = timeit.default_timer() - eval_start
+                time = timeit.default_timer() - start
+                wandb_compat.log({
+                    **_window_summary(sets),
+                    'time': time,
+                    # the window's time less its two evals: the LOG_FREQ
+                    # training steps alone
+                    'train_time': time - eval_time,
+                    'step': global_step,
+                    'epoch': epoch_float,
+                })
+                start = timeit.default_timer()
+                sets = {k: [] for k in sets}
+
+        if not cfg.DEBUG and start_step % steps_per_epoch == 0:
+            assert epoch == epoch_float
+        print(f'epoch float {epoch_float} (step {global_step}) - epoch {epoch}')
+        evaluate('training')
+        evaluate('validation')
+        evaluate('test')
+
+        if epoch in cfg.SAVE_CHECKPOINTS and not cfg.DEBUG:
+            print('saving network', flush=True)
+            checkpoints.save_checkpoint(model, optimizer, epoch, global_step, cfg)
+
+
+def seed_everything(seed: int) -> None:
+    """Host-side determinism (reference train_supervised.py:124-127); the
+    weights and the augmentation draws come from explicit generators."""
+    np.random.seed(seed)
+    torch.manual_seed(seed)

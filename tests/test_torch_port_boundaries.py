@@ -22,6 +22,10 @@ PORT_MODULES = [
     "data.synthetic", "models.blocks", "models.networks", "models.factory",
     "weights", "train_lib", "metrics", "ops.confusion", "ops._build",
     "evaluation",
+    # slice 2: supervised training
+    "losses", "ops.bn_stats", "models.batchnorm", "data.augmentations",
+    "data.loader", "wandb_compat", "checkpoints", "parsers",
+    "experiment_manager", "trainers", "train_supervised",
 ]
 
 
@@ -33,6 +37,7 @@ def test_every_slice_module_exists():
     for mod in PORT_MODULES:
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
     assert (PORT / "ops" / "csrc" / "confusion.cu").is_file()
+    assert (PORT / "ops" / "csrc" / "bn_stats.cu").is_file()
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)

@@ -135,10 +135,23 @@ def test_items_match_jax(fixture_dataset, mode, overrides):
     assert tds.cache.cache_dir.name == ".cache_torch"
 
 
-def test_augmentation_mode_is_not_ported_yet(fixture_dataset):
-    _, tcfg = _cfgs(fixture_dataset)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultimodalCDDataset(tcfg, SPLIT)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_training_item_matches_jax_crop_stack(fixture_dataset, seed):
+    """The default (training) mode: for the same numpy generator, each
+    item's planar crop stack is byte for byte the JAX package's
+    ``crop_only=True, return_stack=True`` item."""
+    jcfg, tcfg = _cfgs(fixture_dataset)
+    jds = JaxDataset(jcfg, SPLIT, crop_only=True, return_stack=True)
+    tds = MultimodalCDDataset(tcfg, SPLIT)
+    assert len(tds) == len(jds)
+    for i in range(len(tds)):
+        ji = jds.get(i, np.random.default_rng([seed, i]))
+        ti = tds.get(i, np.random.default_rng([seed, i]))
+        assert ti["stack"].dtype == ji["stack"].dtype
+        assert ti["stack"].tobytes() == ji["stack"].tobytes()
+        for key in ("aoi_id", "year_t1", "month_t1", "year_t2", "month_t2",
+                    "is_labeled"):
+            assert ti[key] == ji[key], key
 
 
 @pytest.mark.parametrize("shape,bucket", [((80, 96, 6), 64), ((88, 104, 1), 64),

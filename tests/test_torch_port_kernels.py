@@ -1,20 +1,24 @@
-"""The confusion wrapper and kernel, with no JAX in the process.
+"""The kernel wrappers and kernels (confusion counts, bn_stats), with no JAX
+in the process.
 
 This file imports only the port, torch and numpy, so it also runs on the
 machine with the card, where JAX is not used:
 
     python -m pytest --noconftest -q tests/test_torch_port_kernels.py
 
-There the ``cuda``-marked test holds the CUDA kernel against its plain
-version (exact integer equality); here, without a card, it skips inside
-the test. The other tests check the wrapper's contract on the CPU.
+There the ``cuda``-marked tests hold each CUDA kernel against its plain
+version (confusion: exact integer equality; bn_stats: within 1e-5 of
+Σ|a·b| per channel, and bit-equal from launch to launch); here, without a
+card, they skip inside the test. The other tests check the wrappers'
+contracts on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from multimodal_siamese_cd_tpu_torch.ops import confusion
+from multimodal_siamese_cd_tpu_torch.models.batchnorm import BatchNorm2d
+from multimodal_siamese_cd_tpu_torch.ops import bn_stats, confusion
 
 torch.set_num_threads(1)
 
@@ -101,3 +105,91 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no sm_90a here"):
         _build.load_library("confusion")
     assert not list((tmp_path / "torch_ext").glob("*.so*"))
+
+
+def _bn_inputs(shape, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(shape, generator=gen).to(dtype)
+    b = (torch.randn(shape, generator=gen) + 0.5).to(dtype)
+    return a, b
+
+
+def test_bn_stats_wrapper_rejects_what_the_kernel_does_not_take():
+    a, b = _bn_inputs((2, 3, 4, 5), torch.float32)
+    with pytest.raises(ValueError, match="bfloat16 or both float32"):
+        bn_stats.bn_stats(a, b.double())
+    with pytest.raises(ValueError, match="bfloat16 or both float32"):
+        bn_stats.bn_stats(a.half(), b.half())
+    with pytest.raises(ValueError, match="shape"):
+        bn_stats.bn_stats(a, b[:1])
+    with pytest.raises(ValueError, match="shape"):
+        bn_stats.bn_stats(a[0], b[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_stats.bn_stats(a.transpose(2, 3), b.transpose(2, 3))
+
+
+def test_bn_stats_cpu_tensors_take_the_plain_version_without_a_launch():
+    a, b = _bn_inputs((2, 3, 5, 7), torch.bfloat16)
+    before = bn_stats.bn_stats.launches
+    got = bn_stats.bn_stats(a, b)
+    assert bn_stats.bn_stats.launches == before
+    want = bn_stats.bn_stats_reference(a, b)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (3,)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 64, 256, 256), (8, 512, 16, 16),
+                                   (1, 3, 17, 19), (2, 3, 10, 10)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_bn_stats_matches_plain_and_is_deterministic(shape, dtype):
+    """Needs the card: vector and scalar paths (H·W a multiple of 8, of 4
+    only, odd), a is b and not; |kernel - float64 plain| <= 1e-5 · Σ|a·b|
+    per channel; two launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the bn_stats kernel runs only there")
+    a, b = (t.cuda() for t in _bn_inputs(shape, dtype, seed=sum(shape)))
+    for bb in (a, b):
+        before = bn_stats.bn_stats.launches
+        got = bn_stats.bn_stats(a, bb)
+        assert bn_stats.bn_stats.launches == before + 1
+        again = bn_stats.bn_stats(a, bb)
+        ref = bn_stats.bn_stats_reference(a, bb, torch.float64)
+        limits = (1e-5 * a.double().abs().sum(dim=(0, 2, 3)),
+                  1e-5 * (a.double() * bb.double()).abs().sum(dim=(0, 2, 3)))
+        for g, h, r, lim in zip(got, again, ref, limits):
+            assert torch.equal(g, h)
+            assert bool(((g.double() - r).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_train_batchnorm_launches_the_kernel_forward_and_backward(dtype):
+    """Needs the card: one train-mode BN launches bn_stats once forward and
+    once backward, and agrees with the same module on the CPU (plain sums)
+    run in float32 on the same inputs. For bf16 the card takes the bf16
+    tensors, as under autocast, and the CPU their float32 upcast: the
+    output and the input gradient, rounded to bf16 on the card, agree to
+    1e-2 (bf16 keeps 8 significant bits); the parameter gradients and
+    running statistics, float32 on both, to 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the bn_stats kernel runs only there")
+    x, g = _bn_inputs((4, 16, 32, 32), dtype, seed=5)
+    results = []
+    for dev, dt in (("cpu", torch.float32), ("cuda", dtype)):
+        bn = BatchNorm2d(16).to(dev)
+        xd = x.to(dev, dt, copy=True).requires_grad_()
+        before = bn_stats.bn_stats.launches
+        y = bn(xd)
+        assert y.dtype == dt
+        (y * g.to(dev, dt)).sum().backward()
+        if dev == "cuda":
+            assert bn_stats.bn_stats.launches == before + 2
+        results.append([t.detach().float().cpu() for t in
+                        (y, xd.grad, bn.weight.grad, bn.bias.grad,
+                         bn.running_mean, bn.running_var)])
+    lowp = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for i, (cpu, card) in enumerate(zip(*results)):
+        tol = lowp if i < 2 else 1e-4
+        torch.testing.assert_close(card, cpu, atol=tol, rtol=tol)
