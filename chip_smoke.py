@@ -12,15 +12,24 @@ script exits non-zero:
      nvcc per kernel, all started together;
   3. each kernel against its plain PyTorch version on the card, and its time
      per launch at the main path's shape beside its bound:
-       a. confusion counts, exact integer equality (ties at the threshold,
-          masked tails, ragged sizes, several thresholds, a scene past 2^24
-          valid pixels);
+       a. confusion counts with both rules (the training metric's rounding
+          rule and the assessment's strict ``p > thr``), exact integer
+          equality (ties at the threshold and +-1 ulp, masked tails, ragged
+          sizes, several thresholds, a scene past 2^24 valid pixels), two
+          launches equal;
        b. bn_stats at every BatchNorm shape of a full-width training step and
           at ragged shapes, bf16 and f32, ``a is b`` and not, against the
           plain version in float64 (|kernel - ref| <= 1e-5 · Σ|a·b| per
           channel), and two launches on one input bit-equal; beside it the
           one PyTorch call that computes the same sums
           (``torch.batch_norm_backward_reduce``), as a yardstick;
+       c. conv3x3, the op's own path (no model calls it): at the JAX test's
+          shape, the Pallas tool's shape, every U-Net level at batch 8 and
+          256^2 crops and a ragged shape, bf16 and f32, against the plain
+          version in float32 without TF32 (f32: atol 1e-4; bf16: one bf16
+          ulp plus 1e-4), two launches bit-equal; time per launch beside
+          its bound, the plain version and cuDNN's ``F.conv2d`` on
+          channels_last bf16 tensors;
   4. the inference path at full width: a synthetic SpaceNet7-layout split
      of ~1000^2 scenes, ``configs/siamese.yaml`` (topology [64,128,256,512],
      6 channels per date, bf16), seeded random weights and BN statistics,
@@ -31,7 +40,15 @@ script exits non-zero:
      autocast, AdamW) with the kernels' launch counts read around it,
      patches/s per log window, peak device memory, in-training
      ``model_evaluation`` (the confusion kernel) and a checkpoint; then a
-     profile of one step, and a ``latest`` resume that takes one more step.
+     profile of one step, and a ``latest`` resume that takes one more step;
+  6. the dual-task path at full width over the same split: ``trainers.
+     run_training(cfg, 'dualtask')`` on ``configs/dtsiamese.yaml`` (88
+     bn_stats launches a step, finite change and semantic losses, a
+     checkpoint holding the auxiliary head, which weight decay alone
+     moves), a profile of one step, then ``evaluation.
+     dualtask_quantitative_counts`` over the 20 scenes with the strict
+     kernel's launches counted around it, and every group's kernel counts
+     against the plain version on the card's probabilities.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports only the port,
@@ -51,25 +68,27 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from multimodal_siamese_cd_tpu_torch import (checkpoints, evaluation, train_lib,
-                                             trainers, wandb_compat)
+from multimodal_siamese_cd_tpu_torch import (checkpoints, evaluation, metrics,
+                                             train_lib, trainers, wandb_compat)
 from multimodal_siamese_cd_tpu_torch.config import load_cfg
 from multimodal_siamese_cd_tpu_torch.data.dataset import MultimodalCDDataset
 from multimodal_siamese_cd_tpu_torch.data.loader import TrainLoader, prefetch_to_device
 from multimodal_siamese_cd_tpu_torch.data.synthetic import generate_fixture_dataset
 from multimodal_siamese_cd_tpu_torch.metrics import MultiThresholdMetric
 from multimodal_siamese_cd_tpu_torch.models.factory import create_network
-from multimodal_siamese_cd_tpu_torch.ops import _build, bn_stats, confusion
+from multimodal_siamese_cd_tpu_torch.ops import _build, bn_stats, confusion, conv3x3
 from multimodal_siamese_cd_tpu_torch.train_lib import eval_forward
 
-# Peak memory rate (bytes/s) and fp32 non-tensor-core rate (op/s) by the
-# name torch reports (NVIDIA data sheets; dense, no sparsity).
+# Peak memory rate (bytes/s), fp32 non-tensor-core rate and bf16 dense
+# tensor-core rate (op/s) by the name torch reports (NVIDIA data sheets;
+# dense, no sparsity).
 PEAKS = {
-    "H100 80GB HBM3": (3.35e12, 67e12),     # SXM
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H200": (4.8e12, 67e12),
+    "H100 80GB HBM3": (3.35e12, 67e12, 989e12),     # SXM
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H200": (4.8e12, 67e12, 989e12),
 }
 MAIN_SCENES, MAIN_SIDE = 16, 1024          # one full eval group of 1024^2 scenes
 N_AOIS, AOI_SIDE = 20, 1000                # scenes 1000..1016 px pad to 1024:
@@ -81,16 +100,23 @@ BN_SHAPES = [(8, 64, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64),
              (8, 128, 64, 64), (8, 64, 128, 128)]
 BN_RAGGED = [(1, 3, 17, 19), (1, 3, 256, 256), (2, 3, 10, 10), (3, 5, 7, 9),
              (1, 3, 1, 1)]
-# training phase: 8 AOIs x 48 = 384 crops = 48 steps of 8 at batch 8, four
+# training phases: 8 AOIs x 48 = 384 crops = 48 steps of 8 at batch 8, four
 # LOG_FREQ windows of 12 (the first is warm-up); 2 + 2 AOIs to validate/test
 TRAIN_AOIS, TRAIN_MULTIPLIER, TRAIN_LOG_FREQ = 8, 48, 12
+# conv3x3 (B, H, W, Cin, Cout): the JAX test's shape, the Pallas tool's own
+# (Cin padded to 128), every U-Net level at batch 8 and 256^2 crops, and a
+# ragged one; the U-Net's top level is the row's headline shape
+CONV_SHAPES = [(2, 32, 64, 128, 16), (8, 256, 256, 128, 64),
+               (8, 256, 256, 64, 64), (8, 128, 128, 128, 128),
+               (8, 64, 64, 256, 256), (8, 32, 32, 512, 512), (1, 37, 29, 64, 64)]
+CONV_MAIN = (8, 256, 256, 64, 64)
 
 
 def log(*args) -> None:
     print(*args, flush=True)
 
 
-def peaks(name: str) -> tuple[float, float]:
+def peaks(name: str) -> tuple[float, float, float]:
     for key, val in PEAKS.items():
         if key in name:
             return val
@@ -183,7 +209,8 @@ def phase_build() -> None:
     """One nvcc per kernel, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    kernels = {"confusion": confusion._kernel, "bn_stats": bn_stats._kernel}
+    kernels = {"confusion": confusion._kernel, "bn_stats": bn_stats._kernel,
+               "conv3x3": conv3x3._kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for fut in [pool.submit(fn) for fn in kernels.values()]:
@@ -194,7 +221,8 @@ def phase_build() -> None:
         info = _build.BUILD_INFO[name]
         log(f"build {name}: {info['seconds']:.2f} s nvcc")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "registers" in line or "spill" in line or "smem" in line \
+                    or "entry function" in line:
                 log(f"  ptxas: {line.strip()}")
 
 
@@ -219,25 +247,35 @@ def _case(gen: np.random.Generator, n_scenes: int, n_pixels: int,
             torch.from_numpy(thresholds.astype(np.float32)).to(dev))
 
 
-def phase_kernel(card: dict) -> dict:
+def phase_kernel(card: dict) -> tuple:
     gen = np.random.default_rng(0)
-    max_err = 0
+    max_err = {False: 0, True: 0}
 
     def check(label, args):
-        nonlocal max_err
-        got = confusion.confusion_counts(*args)
-        want = confusion.confusion_counts_plain(*args)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        max_err = max(max_err, err)
-        valid_px = int(args[2].sum())
-        log(f"  {label}: shape {tuple(args[0].shape)} T={args[3].numel()} "
-            f"valid px {valid_px}: max |kernel - plain| = {err}")
-        if err != 0:
-            raise AssertionError(f"confusion kernel != plain version ({label})")
-        return got
+        """Both rules against their plain versions, and two launches of
+        each equal."""
+        out = {}
+        for strict, fn, plain in (
+                (False, confusion.confusion_counts, confusion.confusion_counts_plain),
+                (True, confusion.strict_confusion_counts,
+                 confusion.strict_confusion_counts_plain)):
+            got = fn(*args)
+            again = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            max_err[strict] = max(max_err[strict], err)
+            if err != 0 or not torch.equal(got, again):
+                raise AssertionError(f"confusion kernel (strict={strict}) != "
+                                     f"plain version or not repeatable ({label})")
+            out[strict] = got
+        differ = int((out[True][:, 0] - out[False][:, 0]).abs().sum())
+        log(f"  {label}: shape {tuple(args[0].shape)} T={args[3].numel()} valid px "
+            f"{int(args[2].sum())}: both rules equal their plain versions, "
+            f"launches repeat; the rules' tp differ on {differ} px")
+        return out[False]
 
-    log("kernel vs plain (exact int64 equality):")
+    log("kernel vs plain, rounding and strict rule (exact int64 equality):")
     for n_px in (1_000_003, 1_024_000):      # ragged -> scalar path; /4 -> vector path
         for thr in (np.array([0.5]), np.linspace(0.1, 0.9, 5),
                     np.linspace(0.05, 0.95, 11)):
@@ -256,32 +294,38 @@ def phase_kernel(card: dict) -> dict:
     probs, y, valid, thr = args
     n_scenes, n_px = probs.shape
     out = torch.zeros((n_scenes, 4, 1), dtype=torch.int64, device="cuda")
-    kernel_ms = cuda_time_ms(lambda: confusion.launch(*args, out), runs=25,
-                             inner=20)
-    wrapper_ms = cuda_time_ms(lambda: confusion.confusion_counts(*args), runs=25)
-    plain_ms = cuda_time_ms(lambda: confusion.confusion_counts_plain(*args),
-                            runs=21, warmup=2)
-    bw, flops = peaks(card["name"])
+    bw, flops, _ = peaks(card["name"])
     n_bytes = n_scenes * n_px * (4 + 1 + 1) + 4 + n_scenes * 4 * 8
     n_ops = 4 * n_scenes * n_px          # sub, add, rint, compare per px per thr
     bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / flops * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"confusion kernel at {n_scenes} x {MAIN_SIDE}^2, T=1 on {card['smi']}: "
-        f"{kernel_ms * 1e3:.1f} us/launch (back-to-back, median of 25 x 20), "
-        f"{wrapper_ms * 1e3:.1f} us per wrapper call (alloc + launch), "
-        f"plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us "
-        f"({n_bytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; ops bound "
-        f"{ops_ms * 1e3:.2f} us), {bytes_ms / kernel_ms * 100:.1f}% of the "
-        f"memory roofline, {n_bytes / kernel_ms / 1e6:.0f} GB/s achieved")
+    rows = []
+    for strict, name, fn, plain in (
+            (False, "confusion_counts", confusion.confusion_counts,
+             confusion.confusion_counts_plain),
+            (True, "confusion_counts_strict", confusion.strict_confusion_counts,
+             confusion.strict_confusion_counts_plain)):
+        kernel_ms = cuda_time_ms(lambda: confusion.launch(*args, out, strict),
+                                 runs=25, inner=20)
+        wrapper_ms = cuda_time_ms(lambda: fn(*args), runs=25)
+        plain_ms = cuda_time_ms(lambda: plain(*args), runs=21, warmup=2)
+        log(f"{name} kernel at {n_scenes} x {MAIN_SIDE}^2, T=1 on {card['smi']}: "
+            f"{kernel_ms * 1e3:.1f} us/launch (back-to-back, median of 25 x 20), "
+            f"{wrapper_ms * 1e3:.1f} us per wrapper call (alloc + launch), "
+            f"plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us "
+            f"({n_bytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; ops bound "
+            f"{ops_ms * 1e3:.2f} us), {bytes_ms / kernel_ms * 100:.1f}% of the "
+            f"memory roofline, {n_bytes / kernel_ms / 1e6:.0f} GB/s achieved")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "multimodal_siamese_cd_tpu_torch/ops/csrc/confusion.cu",
+                     "replaces": "multimodal_siamese_cd_tpu/ops/confusion.py:27",
+                     "launches": None, "max_abs_err": max_err[strict],
+                     "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "library_ms": None})
     del args, probs, y, valid, big
     torch.cuda.empty_cache()
-    return {"name": "confusion_counts", "route": "cuda",
-            "source": "multimodal_siamese_cd_tpu_torch/ops/csrc/confusion.cu",
-            "replaces": "multimodal_siamese_cd_tpu/ops/confusion.py:27",
-            "launches": None, "max_abs_err": max_err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+    return tuple(rows)
 
 
 # -- phase 3b -----------------------------------------------------------------
@@ -352,7 +396,7 @@ def phase_bn_stats(card: dict) -> dict:
     got = bn_stats.bn_stats(dy, x)
     lib_diff = max(float((g - l.float()).abs().max()) for g, l in zip(got, lib_out[:2]))
     library_ms = cuda_time_ms(lib, runs=25, inner=5)
-    bw, flops = peaks(card["name"])
+    bw, flops, _ = peaks(card["name"])
     numel = dy.numel()
     out_bytes = 2 * c * 4
     back_bytes, fwd_bytes = 2 * numel * 2 + out_bytes, numel * 2 + out_bytes
@@ -378,6 +422,106 @@ def phase_bn_stats(card: dict) -> dict:
             "plain_ms": plain_ms, "bound_ms": back_bound,
             "bound_by": "bytes" if back_bytes / bw * 1e3 >= ops_ms else "operations",
             "library_ms": library_ms}
+
+
+# -- phase 3c -----------------------------------------------------------------
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of ``t`` (8 significant bits)."""
+    e = torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def phase_conv3x3(card: dict) -> dict:
+    """conv3x3's own path (the op through its entry point; no model calls
+    it) at every CONV_SHAPES shape in bf16 and f32, each output held
+    against the plain version; a second launch bit-equal; times per launch
+    beside the bound, the plain version and cuDNN."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bw, _, tensor_flops = peaks(card["name"])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False   # the plain f32 conv is f32
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_ulps = 0.0
+    times = {}
+    log("conv3x3 vs plain (float32 conv without TF32; f32 inputs atol 1e-4, "
+        "bf16 inputs one bf16 ulp + 1e-4; second launch bit-equal):")
+    try:
+        # ---- the op's path, with the kernel's launch count around it ----
+        conv3x3.conv3x3.launches = 0
+        for shape in CONV_SHAPES:
+            b, h, w, cin, cout = shape
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.rand((b, h, w, cin), generator=gen, device=dev).to(dtype)
+                wt = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+                      * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+                y = conv3x3.conv3x3(x, wt)                  # the path
+                wb = wt.to(torch.bfloat16).contiguous()
+                again = torch.empty_like(y)
+                conv3x3.launch(x, wb, again)                # uncounted repeat
+                want = conv3x3.conv3x3_plain(x, wt)
+                err = (y.float() - want.float()).abs()
+                if dtype == torch.float32:
+                    ok = float(err.max()) <= 1e-4
+                else:
+                    ok = bool((err <= _bf16_ulp(want) + 1e-4).all())
+                    away = want.float().abs() >= 1e-2   # away from cancellation
+                    worst_ulps = max(worst_ulps,
+                                     float((err / _bf16_ulp(want))[away].max()))
+                max_err[dtype] = max(max_err[dtype], float(err.max()))
+                bitwise = torch.equal(y, again)
+                if not ok or not bitwise or y.shape != (b, h, w, cout):
+                    raise AssertionError(f"conv3x3 {shape} {dtype}: max |kernel - "
+                                         f"plain| {float(err.max()):.3e}, "
+                                         f"bit-equal {bitwise}")
+                # times: kernel (launch alone), plain, cuDNN on bf16
+                # channels_last tensors (the same function for bf16 inputs)
+                k_ms = cuda_time_ms(lambda: conv3x3.launch(x, wb, again),
+                                    runs=10, inner=10)
+                p_ms = cuda_time_ms(lambda: conv3x3.conv3x3_plain(x, wt), runs=5,
+                                    warmup=1)
+                lib_ms = None
+                if dtype == torch.bfloat16:
+                    xc = x.permute(0, 3, 1, 2)
+                    wc = wt.permute(3, 2, 0, 1).contiguous(
+                        memory_format=torch.channels_last)
+                    lib_ms = cuda_time_ms(lambda: F.conv2d(xc, wc, padding=1),
+                                          runs=10, inner=10)
+                n_bytes = (x.numel() * x.element_size() + wt.numel() * wt.element_size()
+                           + y.numel() * y.element_size())
+                n_ops = 2 * b * h * w * cin * cout * 9
+                bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / tensor_flops * 1e3
+                bound = max(bytes_ms, ops_ms)
+                times[(shape, dtype)] = (k_ms, p_ms, lib_ms, bound,
+                                         "bytes" if bytes_ms >= ops_ms else "operations")
+                log(f"  {shape} {str(dtype)[6:]}: max |err| {float(err.max()):.3e}, "
+                    f"bit-equal; kernel {k_ms * 1e3:.1f} us "
+                    f"({n_ops / k_ms / 1e9:.1f} TFLOP/s), bound {bound * 1e3:.1f} us "
+                    f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: "
+                    f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP), plain "
+                    f"{p_ms * 1e3:.1f} us, cuDNN "
+                    + (f"{lib_ms * 1e3:.1f} us" if lib_ms else "n/a (no single "
+                       "call rounds f32 operands to bf16)"))
+                del x, wt, wb, y, again, want, err
+        launches = conv3x3.conv3x3.launches
+        # ------------------------------------------------------------------
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    expect = 2 * len(CONV_SHAPES)
+    log(f"conv3x3 path: {launches} launches (expected {expect}); max |err| "
+        f"f32 {max_err[torch.float32]:.3e}, bf16 {max_err[torch.bfloat16]:.3e} "
+        f"(at most {worst_ulps:.2f} bf16 ulp where |y| >= 1e-2); on {card['smi']}")
+    if launches != expect:
+        raise AssertionError(f"conv3x3 launched {launches} times on its path")
+    k_ms, p_ms, lib_ms, bound, bound_by = times[(CONV_MAIN, torch.bfloat16)]
+    return {"name": "conv3x3", "route": "cuda",
+            "source": "multimodal_siamese_cd_tpu_torch/ops/csrc/conv3x3.cu",
+            "replaces": "tools/pallas_conv3x3_experiment.py:51",
+            "launches": launches, "max_abs_err": max(max_err.values()),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms}
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -542,8 +686,8 @@ def phase_main_path(card: dict, kernel_row: dict, dev: torch.device,
 
 # -- phase 5 ------------------------------------------------------------------
 
-def _train_cfg(root: Path, out: Path, aois: list):
-    cfg = load_cfg("siamese")
+def _train_cfg(root: Path, out: Path, aois: list, name: str = "siamese"):
+    cfg = load_cfg(name)
     cfg.PATHS.DATASET = str(root)
     cfg.PATHS.OUTPUT = str(out)
     cfg.DATASET.TRAINING_IDS = aois[:TRAIN_AOIS]
@@ -556,10 +700,12 @@ def _train_cfg(root: Path, out: Path, aois: list):
     return cfg
 
 
-def bn_per_step(topology) -> int:
-    """BatchNorms a siameseunet step applies: the stem and every Down on
-    each date (two each), and every Up (two each) — 28 at full width."""
-    return 2 * (2 + 2 * len(topology)) + 2 * len(topology)
+def bn_per_step(topology, decoder_calls: int = 1) -> int:
+    """Train-mode BatchNorm calls of one step: the stem and every Down on
+    each date (two each), and every Up (two each) of each decoder call —
+    28 at full width for siameseunet (one decoder call), 44 for
+    dtsiameseunet (the change decoder, the semantic one on both dates)."""
+    return 2 * (2 + 2 * len(topology)) + decoder_calls * 2 * len(topology)
 
 
 def _records(out: Path, name: str) -> list:
@@ -571,10 +717,14 @@ def _records(out: Path, name: str) -> list:
 def _reset_counts() -> None:
     bn_stats.bn_stats.launches = 0
     confusion.confusion_counts.launches = 0
+    confusion.strict_confusion_counts.launches = 0
 
 
 def _counts() -> tuple:
-    return bn_stats.bn_stats.launches, confusion.confusion_counts.launches
+    """Launches of bn_stats, the rounding-rule and the strict-rule confusion
+    kernel since the last reset."""
+    return (bn_stats.bn_stats.launches, confusion.confusion_counts.launches,
+            confusion.strict_confusion_counts.launches)
 
 
 def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
@@ -596,10 +746,10 @@ def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
-        trainers.run_training(cfg, device=dev)
+        trainers.run_training(cfg, "supervised", device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        bn_launches, conf_launches = _counts()
+        bn_launches, conf_launches, _ = _counts()
         # --------------------------------------------------------------------
         peak_run = torch.cuda.max_memory_allocated()
     finally:
@@ -689,9 +839,9 @@ def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
     wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl", out_dir=out)
     try:
         _reset_counts()
-        trainers.run_training(cfg, device=dev)
+        trainers.run_training(cfg, "supervised", device=dev)
         torch.cuda.synchronize()
-        bn_launches, conf_launches = _counts()
+        bn_launches, conf_launches, _ = _counts()
     finally:
         wandb_compat.finish()
     last = _records(out, cfg.NAME)[-1]
@@ -703,11 +853,192 @@ def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
                              "from the checkpoint's")
 
 
+# -- phase 6 ------------------------------------------------------------------
+
+def _assessment_groups(ds, group: int):
+    """The dual-task assessment's wire groups as the stream forms them
+    (one padded shape here): stacked (x1, x2, y, ysem1, ysem2, valid)."""
+    keys = ("x1", "x2", "y", "ysem1", "ysem2", "valid")
+    wires = [ds.eval_wire(i, sem=True) for i in range(len(ds))]
+    for g0 in range(0, len(wires), group):
+        yield tuple(np.stack([w[k] for w in wires[g0:g0 + group]]) for k in keys)
+
+
+def phase_dualtask(card: dict, rows: dict, dev: torch.device, root: Path,
+                   aois: list) -> None:
+    out = root / "dualtask_out"
+    out.mkdir()
+    cfg = _train_cfg(root, out, aois, "dtsiamese")
+    a = cfg.AUGMENTATION
+    log(f"dual-task training: {cfg.MODEL.TYPE} topology {list(cfg.MODEL.TOPOLOGY)}, "
+        f"batch {cfg.TRAINER.BATCH_SIZE}, {a.CROP_SIZE}^2 {a.IMAGE_OVERSAMPLING_TYPE} "
+        f"crops, flip {a.RANDOM_FLIP}, rotate {a.RANDOM_ROTATE}, precision "
+        f"{cfg.TRAINER.get('PRECISION', 'bf16')}, loss {cfg.MODEL.LOSS_TYPE}, "
+        f"building labels {cfg.DATALOADER.INCLUDE_BUILDING_LABELS}, LOG_FREQ "
+        f"{cfg.LOG_FREQ}")
+    wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl", out_dir=out)
+    try:
+        # ---- the dual-task training path, with the launch counts around it --
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainers.run_training(cfg, "dualtask", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bn_launches, conf_launches, strict_launches = _counts()
+        # --------------------------------------------------------------------
+        peak_run = torch.cuda.max_memory_allocated()
+    finally:
+        wandb_compat.finish()
+    records = _records(out, cfg.NAME)
+    windows = [r for r in records if "train_time" in r]
+    steps = windows[-1]["step"] if windows else 0
+    expect = 2 * bn_per_step(cfg.MODEL.TOPOLOGY, decoder_calls=3)   # fwd + bwd
+    log(f"run_training dualtask: {steps} steps in {wall:.1f} s wall (with its "
+        f"evals); launches bn_stats {bn_launches} ({bn_launches / max(steps, 1):.1f} "
+        f"per step, expected {expect}), confusion {conf_launches}, strict "
+        f"{strict_launches}; peak device memory {peak_run / 2**30:.2f} GiB")
+    if bn_launches != expect * steps or steps == 0:
+        raise AssertionError(f"bn_stats launched {bn_launches} times in {steps} "
+                             f"steps, expected {expect} per step")
+    if conf_launches < 1:
+        raise AssertionError("model_evaluation never launched the confusion kernel")
+    patches = []
+    for r in windows:
+        rate = cfg.LOG_FREQ * cfg.TRAINER.BATCH_SIZE / r["train_time"]
+        patches.append(rate)
+        log(f"  window to step {r['step']}: loss {r['loss']:.6f}, change_loss "
+            f"{r['change_loss']:.6f}, sem_loss {r['sem_loss']:.6f}, "
+            f"{rate:.2f} patches/s, window time {r['time']:.3f} s")
+        if not all(np.isfinite([r["loss"], r["change_loss"], r["sem_loss"]])):
+            raise AssertionError(f"non-finite dual-task losses at step {r['step']}")
+    if len(patches) < 4:
+        raise AssertionError(f"expected 4 log windows, got {len(patches)}")
+    log(f"dual-task training throughput (host clock, batch {cfg.TRAINER.BATCH_SIZE} "
+        f"x {a.CROP_SIZE}^2, {card['smi']}): {statistics.median(patches[1:]):.2f} "
+        f"patches/s, median of windows 2-4 (window 1 is warm-up: "
+        f"{patches[0]:.2f})")
+
+    # the checkpoint holds the auxiliary head, which only weight decay moved
+    ckpt = checkpoints.checkpoint_file(cfg, 1)
+    payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+    if "module.outc_sem_change.conv.weight" not in payload["network"]:
+        raise AssertionError("the dual-task checkpoint lacks outc_sem_change")
+    model, optimizer, step = checkpoints.load_checkpoint(1, cfg, device=dev)
+    init = create_network(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(cfg.SEED))
+    with torch.no_grad():
+        w0 = init.outc_sem_change.conv.weight.double()
+        moved = model.outc_sem_change.conv.weight.double() - w0
+        decay = w0 * ((1 - cfg.TRAINER.LR * 0.01) ** step - 1)
+        rel = float(((moved - decay).abs() / decay.abs()).max())
+        finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    log(f"checkpoint {ckpt.name} at step {step}: outc_sem_change moved by weight "
+        f"decay alone: max |dw - w0((1 - lr wd)^{step} - 1)| / |that| = {rel:.3e} "
+        f"(limit 0.1); all finite {finite}")
+    if step != steps or rel > 0.1 or not finite:
+        raise AssertionError("dual-task checkpoint: wrong step, auxiliary head "
+                             "not decayed as AdamW decays it, or not finite")
+    del init
+
+    # one step alone: device time, peak, 88 launches, a profile
+    step_fn = train_lib.make_train_step(model, optimizer, cfg, "dualtask")
+    loader = TrainLoader(MultimodalCDDataset(cfg, "training"),
+                         cfg.TRAINER.BATCH_SIZE, num_workers=0, seed=1)
+    batch = next(prefetch_to_device(loader, dev))
+    for _ in range(2):
+        step_fn(batch["stack"], batch["is_labeled"], step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    step_ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"],
+                                           step), runs=5, warmup=0)
+    per_step = bn_stats.bn_stats.launches / 5
+    log(f"one dual-task step on a staged batch (CUDA events, median of 5): "
+        f"{step_ms:.1f} ms = {cfg.TRAINER.BATCH_SIZE / step_ms * 1e3:.2f} "
+        f"patches/s of device time; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; bn_stats launches "
+        f"per step {per_step:g}")
+    if per_step != expect:
+        raise AssertionError(f"{per_step} bn_stats launches per dual-task step")
+    profile_breakdown("one dual-task training step",
+                      lambda: step_fn(batch["stack"], batch["is_labeled"], step),
+                      top=12, match="bn_stats")
+    del optimizer, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # ---- the assessment path over the 20-scene split, strict counts ----
+    cfg.DATASET.TEST_IDS = aois
+    ds = MultimodalCDDataset(cfg, "test", no_augmentations=True,
+                             dataset_mode="first_last", disable_multiplier=True,
+                             disable_unlabeled=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    counts = evaluation.dualtask_quantitative_counts(model, ds, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, conf_launches, strict_launches = _counts()
+    # ---------------------------------------------------------------------
+    rows["confusion_counts_strict"]["launches"] = strict_launches
+    log(f"dualtask_quantitative_counts: {len(ds)} scenes in {wall:.3f} s = "
+        f"{len(ds) / wall:.2f} scenes/s, strict kernel launches {strict_launches} "
+        f"(rounding-rule launches {conf_launches}), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if strict_launches < 1 or conf_launches != 0:
+        raise AssertionError("the dual-task assessment did not count through "
+                             "the strict kernel alone")
+    f1s = {}
+    for key, triple in counts.items():
+        f1s[key] = metrics.prob_metrics_from_counts(*triple)
+        log(f"  {key}: tp/fp/fn {tuple(int(v) for v in triple)}, F1 "
+            f"{f1s[key][0]:.6f}, precision {f1s[key][1]:.6f}, recall "
+            f"{f1s[key][2]:.6f}")
+        if not np.isfinite(f1s[key][0]) or sum(triple) <= 0:
+            raise AssertionError(f"dual-task {key} metrics not finite")
+
+    # every group's kernel counts == plain counts on the card's probabilities
+    group = max(1, evaluation.eval_group_limit((MAIN_SIDE, MAIN_SIDE)) // 2)
+    thr = torch.tensor([0.5], device=dev)
+    totals = {k: np.zeros(3) for k in counts}
+    err = 0
+    for arrs in _assessment_groups(ds, group):
+        x1, x2, ych, ys1, ys2, valid = (torch.from_numpy(a).to(dev) for a in arrs)
+        heads = evaluation._dualtask_forward(model, x1.float(), x2.float())
+        n = x1.shape[0]
+        for probs, truth, key in zip(heads, (ych, ys1, ys2, ych),
+                                     ("change", "sem", "sem", "change_sem")):
+            args = (probs.reshape(n, -1), truth.reshape(n, -1),
+                    valid.reshape(n, -1), thr)
+            got = confusion.strict_confusion_counts(*args)
+            want = confusion.strict_confusion_counts_plain(*args)
+            err = max(err, int((got - want).abs().max()))
+            totals[key] += want[:, [0, 2, 3], 0].sum(dim=0).cpu().numpy()
+        del heads, x1, x2
+    rows["confusion_counts_strict"]["max_abs_err"] = max(
+        rows["confusion_counts_strict"]["max_abs_err"], err)
+    df1 = max(abs(metrics.prob_metrics_from_counts(*totals[k])[0] - f1s[k][0])
+              for k in counts)
+    log(f"  kernel == plain strict counts on every group's card probabilities "
+        f"(max |diff| {err}); F1 from plain counts within {df1:.2e} of the "
+        f"fused path's (two separate forwards; tolerance 1e-3)")
+    if err != 0 or df1 > 1e-3:
+        raise AssertionError("strict kernel counts != plain, or the fused "
+                             "assessment disagrees with the plain counts")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
-    rows = {"confusion_counts": phase_kernel(card),
-            "bn_stats": phase_bn_stats(card)}
+    rows = dict(zip(("confusion_counts", "confusion_counts_strict"),
+                    phase_kernel(card)))
+    rows["bn_stats"] = phase_bn_stats(card)
+    rows["conv3x3"] = phase_conv3x3(card)
     dev = torch.device("cuda")
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     try:
@@ -715,9 +1046,11 @@ def main() -> None:
         aois = write_split(root)
         phase_main_path(card, rows["confusion_counts"], dev, root, aois)
         phase_train(card, rows, dev, root, aois)
+        phase_dualtask(card, rows, dev, root, aois)
     finally:
         tmp.cleanup()
-    log(f"kernels: {json.dumps(list(rows))}")
+    log(f"kernels: {json.dumps(list(rows))}; chip_smoke wall "
+        f"{time.perf_counter() - t_start:.1f} s (builds included) on {card['smi']}")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

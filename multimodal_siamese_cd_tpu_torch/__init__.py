@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of ``multimodal_siamese_cd_tpu``, for one NVIDIA H100.
 
 A separate package beside the JAX one: it imports torch and numpy (and yaml
-for configs), never jax, flax or the JAX package. It covers ``siameseunet``:
+for configs), never jax, flax or the JAX package. It covers ``siameseunet``
+and ``dtsiameseunet``:
 
 * full-scene change inference — config, GeoTIFF I/O, scene cache, the
   no-augmentation dataset, the model, eval forward, metrics, the confusion-
@@ -12,7 +13,14 @@ for configs), never jax, flax or the JAX package. It covers ``siameseunet``:
   whose statistics come from the ``bn_stats`` CUDA kernel
   (``ops/csrc/bn_stats.cu``), the AdamW step, ``evaluation.
   model_evaluation``, checkpoints, ``trainers.run_training`` and the
-  ``train_supervised`` CLI.
+  ``train_supervised`` CLI;
+* dual-task training and assessment — ``DualTaskSiameseUNet``, the
+  dual-task step, the ``train_supervised_dualtask`` CLI and
+  ``evaluation.dualtask_quantitative_counts``, whose strict ``p > thr``
+  counts come from the confusion kernel's strict variant;
+* the 3x3 SAME convolution op ``ops.conv3x3`` (CUDA kernel
+  ``ops/csrc/conv3x3.cu``), the counterpart of the JAX package's Pallas
+  probe; no model calls it, in either package.
 
 Entry points run on the card unless ``device="cpu"`` is passed.
 """

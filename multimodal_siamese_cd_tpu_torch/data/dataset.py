@@ -258,7 +258,8 @@ class MultimodalCDDataset:
         scene cache must be on (the wire is assembled from its planes)."""
         return self.cache.enabled and self.no_augmentations
 
-    def eval_wire(self, index: int, bucket: int = 64) -> dict | None:
+    def eval_wire(self, index: int, bucket: int = 64,
+                  sem: bool = False) -> dict | None:
         """Planar, bucket-padded full-scene eval wire. Assembled straight
         from the planar scene cache in the cache's STORAGE dtype (f16 by
         default — the values are exactly representable there, so the
@@ -268,7 +269,10 @@ class MultimodalCDDataset:
         Returns None when the scene cache is disabled (callers use the item
         path). Keys: ``x1``/``x2`` (C, Hp, Wp) planar padded imagery,
         ``y``/``valid`` (Hp, Wp) uint8, ``shape`` (h, w) true scene size,
-        plus the item metadata fields."""
+        plus the item metadata fields. ``sem=True`` adds ``ysem1`` /
+        ``ysem2`` (Hp, Wp) uint8, the building rasters of both dates (the
+        dual-task assessment's semantic truths; zero for unlabeled
+        scenes)."""
         if not self.supports_eval_wire():
             return None
         aoi_id = self.aoi_ids[index]
@@ -297,6 +301,14 @@ class MultimodalCDDataset:
         x2, _ = planar_x(year_t2, month_t2)
         hp, wp = x1.shape[1:]
         y = np.zeros((hp, wp), np.uint8)
+        wire = {
+            'x1': x1, 'x2': x2, 'y': y, 'shape': (h, w),
+            'aoi_id': aoi_id, 'year_t1': year_t1, 'month_t1': month_t1,
+            'year_t2': year_t2, 'month_t2': month_t2, 'is_labeled': labeled,
+        }
+        if sem:
+            wire['ysem1'] = np.zeros((hp, wp), np.uint8)
+            wire['ysem2'] = np.zeros((hp, wp), np.uint8)
         if labeled:
             b1 = self.cache.load_raw_planar(aoi_id, 'buildings',
                                             year_t1, month_t1)[0]
@@ -304,13 +316,13 @@ class MultimodalCDDataset:
                                             year_t2, month_t2)[0]
             # construction-only change over {0,1} rasters == b2 > b1
             np.greater(b2, b1, out=y[:h, :w])
+            if sem:
+                wire['ysem1'][:h, :w] = b1
+                wire['ysem2'][:h, :w] = b2
         valid = np.zeros((hp, wp), np.uint8)
         valid[:h, :w] = 1
-        return {
-            'x1': x1, 'x2': x2, 'y': y, 'valid': valid, 'shape': (h, w),
-            'aoi_id': aoi_id, 'year_t1': year_t1, 'month_t1': month_t1,
-            'year_t2': year_t2, 'month_t2': month_t2, 'is_labeled': labeled,
-        }
+        wire['valid'] = valid
+        return wire
 
     def __len__(self) -> int:
         return self.length

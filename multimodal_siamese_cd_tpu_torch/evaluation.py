@@ -1,5 +1,5 @@
 """Full-scene evaluation and offline inference (the JAX package's
-``evaluation.py:47-352``, single device).
+``evaluation.py:47-352, 400-509``, single device).
 
 Protocol (reference utils/evaluation.py:7-41): first_last / no-aug /
 no-multiplier dataset, sigmoid probabilities of full scenes, threshold 0.5,
@@ -10,8 +10,12 @@ batched forward. The per-scene counts go through
 :func:`.ops.confusion.confusion_counts` — the CUDA kernel on the card.
 
 ``inference_loop`` is what assessment_change.py calls; ``model_evaluation``
-is the trainer's in-training evaluation with its wandb logging. Mesh /
-sharded eval and the dual-task functions come in later slices.
+is the trainer's in-training evaluation with its wandb logging (on a
+dual-task model, of its change head). ``dualtask_quantitative_counts`` is
+the dual-task assessment's pooled strict-threshold counts
+(assessment_semantics.py), through the kernel's strict variant;
+``dualtask_scene_outputs`` gives one scene's four heads. Mesh / sharded
+eval comes in a later slice.
 """
 
 from __future__ import annotations
@@ -23,8 +27,8 @@ from . import wandb_compat
 from .data.dataset import MultimodalCDDataset
 from .device import resolve_device
 from .metrics import MultiThresholdMetric
-from .ops.confusion import confusion_counts
-from .train_lib import eval_forward
+from .ops.confusion import confusion_counts, strict_confusion_counts
+from .train_lib import autocast, eval_forward
 
 EVAL_BUCKET = 64
 
@@ -121,17 +125,23 @@ def _eval_wire_counts(model, x1p: np.ndarray, x2p: np.ndarray, y: np.ndarray,
                             vt.reshape(n, -1), thresholds)
 
 
-def _stream_wire_groups(ds, bucket: int, run_group, accumulate) -> None:
+def _stream_wire_groups(ds, bucket: int, keys: tuple, run_group, accumulate,
+                        group_scale: int = 1) -> None:
     """Group ``ds.eval_wire`` wires by padded shape and dispatch a group the
     moment it fills, with ONE group in flight: while the card runs group N
     the host assembles group N+1, and group N's counts are fetched only
     when group N+1 is dispatched. Tails are flushed at the end.
-    Accumulation order equals a sequential loop's.
+    Accumulation order equals a sequential loop's. The engine behind both
+    fused eval paths (:func:`_measure_wired`,
+    :func:`dualtask_quantitative_counts`).
 
-    ``run_group(arrs)`` dispatches one stacked group (x1, x2, y, valid) and
-    returns its device result; ``accumulate(result)`` fetches and folds it
-    on the host."""
-    keys = ('x1', 'x2', 'y', 'valid')
+    ``run_group(arrs)`` dispatches one stacked group (the wire's ``keys``,
+    in order; the semantic planes are assembled when ``keys`` asks for
+    them) and returns its device result; ``accumulate(result)`` fetches and
+    folds it on the host. ``group_scale`` divides
+    :func:`eval_group_limit`'s memory envelope for dispatches that hold
+    more live bytes per scene than the change-head forward it was set for."""
+    sem = 'ysem1' in keys
     pending: dict = {}
     inflight: list = []
 
@@ -142,13 +152,15 @@ def _stream_wire_groups(ds, bucket: int, run_group, accumulate) -> None:
         inflight.append(run_group(arrs))
 
     for i in range(len(ds)):
-        wire = ds.eval_wire(i, bucket)
+        wire = ds.eval_wire(i, bucket, sem=sem)
         group = pending.setdefault(wire['x1'].shape, [])
         group.append(wire)
         wire_bytes = sum(v.nbytes for v in wire.values()
                          if isinstance(v, np.ndarray))
         host_cap = max(1, HOST_WIRE_BUDGET_BYTES // max(1, 2 * wire_bytes))
-        if len(group) >= min(eval_group_limit(wire['x1'].shape[1:]), host_cap):
+        target = min(max(1, eval_group_limit(wire['x1'].shape[1:]) // group_scale),
+                     host_cap)
+        if len(group) >= target:
             dispatch(group)  # np.stack copies, so the list can be reused
             group.clear()
     for group in pending.values():
@@ -164,7 +176,7 @@ def _measure_wired(model, ds, measurer: MultiThresholdMetric, bucket: int,
     host accumulation of the per-scene kernel counts."""
     thr = torch.as_tensor(measurer.thresholds, device=device)
     _stream_wire_groups(
-        ds, bucket,
+        ds, bucket, ('x1', 'x2', 'y', 'valid'),
         run_group=lambda arrs: _eval_wire_counts(model, *arrs, thr, device),
         accumulate=lambda counts: measurer.add_counts(
             *counts.cpu().numpy().astype(np.float64).sum(axis=0)))
@@ -257,3 +269,98 @@ def inference_loop(model, ds, thresholds=None, bucket: int = EVAL_BUCKET,
     thresholds = np.asarray([0.5]) if thresholds is None else np.asarray(thresholds)
     measurer = run_measurer(model, ds, thresholds, bucket=bucket, device=device)
     return {'change': _summarize(measurer)}
+
+
+def _dualtask_forward(model, x_t1: torch.Tensor, x_t2: torch.Tensor) -> tuple:
+    """Eval-mode sigmoid probabilities of every dual-task head for NCHW
+    inputs, each ``(B, 1, H, W)`` float32: ``(change, sem_t1, sem_t2,
+    change_sem)``, the last from the auxiliary head on the semantic logits
+    (the JAX package's ``_dualtask_forward``). Runs under
+    ``torch.inference_mode()`` and, on the card, the model's compute
+    dtype."""
+    model.eval()
+    dtype = getattr(model, "compute_dtype", torch.float32)
+    with torch.inference_mode(), autocast(dtype, x_t1.device):
+        change, sem_t1, sem_t2 = model(x_t1, x_t2)
+        change_sem = model.sem_change_head(sem_t1, sem_t2)
+        return tuple(torch.sigmoid(t.float())
+                     for t in (change, sem_t1, sem_t2, change_sem))
+
+
+def dualtask_scene_outputs(model, item: dict, bucket: int = EVAL_BUCKET,
+                           device=None) -> dict:
+    """All sigmoid heads of a dual-task model for one full scene item,
+    cropped back to the scene: ``{'change', 'sem_t1', 'sem_t2',
+    'change_sem'}`` (h, w) float32 arrays (assessment_semantics.py:
+    115-126)."""
+    device = resolve_device(device)
+    _check_model_device(model, device)
+    x1, _ = pad_to_bucket(item["x_t1"], bucket)
+    x2, _ = pad_to_bucket(item["x_t2"], bucket)
+    heads = _dualtask_forward(model, _nchw(x1[None], device),
+                              _nchw(x2[None], device))
+    h, w = item["x_t1"].shape[:2]
+    return {k: p[0, 0, :h, :w].cpu().numpy()
+            for k, p in zip(("change", "sem_t1", "sem_t2", "change_sem"), heads)}
+
+
+# row order of _dualtask_wire_counts' (B, 4, 3) result
+_DUALTASK_BLOCKS = ("change", "change_sem", "sem_t1", "sem_t2")
+
+
+def _dualtask_wire_counts(model, x1p: np.ndarray, x2p: np.ndarray,
+                          ych: np.ndarray, ysem1: np.ndarray, ysem2: np.ndarray,
+                          valid: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Dual-task forward and strict-threshold counts (``p > 0.5``) for one
+    padded scene group: ``(B, 4, 3)`` int64 (tp, fp, fn) per scene, rows in
+    :data:`_DUALTASK_BLOCKS` order, left on the device. One launch of the
+    kernel's strict variant per head; the semantic heads are counted per
+    date and pooled on the host."""
+    x1 = _to_device(x1p, device).float()
+    x2 = _to_device(x2p, device).float()
+    labels = {k: _to_device(a, device) for k, a in
+              (("y", ych), ("ysem1", ysem1), ("ysem2", ysem2), ("valid", valid))}
+    change, sem_t1, sem_t2, change_sem = _dualtask_forward(model, x1, x2)
+    n = change.shape[0]
+    vt = labels["valid"].reshape(n, -1)
+    thr = torch.tensor([0.5], dtype=torch.float32, device=device)
+    rows = []
+    for probs, truth in ((change, "y"), (change_sem, "y"), (sem_t1, "ysem1"),
+                         (sem_t2, "ysem2")):
+        counts = strict_confusion_counts(probs.reshape(n, -1),
+                                         labels[truth].reshape(n, -1), vt, thr)
+        rows.append(counts[:, [0, 2, 3], 0])           # tp, fp, fn
+    return torch.stack(rows, dim=1)
+
+
+def dualtask_quantitative_counts(model, ds, bucket: int = EVAL_BUCKET,
+                                 device=None) -> dict | None:
+    """Pooled strict-threshold confusion counts of the dual-task offline
+    assessment (the JAX package's ``dualtask_quantitative_counts``, behind
+    assessment_semantics.py): ``{'change'|'change_sem'|'sem': (tp, fp,
+    fn)}`` float64 over the split, the semantic counts pooled over both
+    dates; feed them to :func:`.metrics.prob_metrics_from_counts`. Scenes
+    are grouped by padded shape with one group in flight, per-scene counts
+    summed on the host in float64. None when the dataset has no wire path
+    (cache disabled or training mode): the caller then takes the item
+    path through :func:`dualtask_scene_outputs`."""
+    if getattr(ds, "supports_eval_wire", None) is None \
+            or not ds.supports_eval_wire():
+        return None
+    device = resolve_device(device)
+    _check_model_device(model, device)
+    totals = {k: np.zeros(3, np.float64) for k in ("change", "change_sem", "sem")}
+
+    def accumulate(counts: torch.Tensor) -> None:
+        pooled = counts.cpu().numpy().astype(np.float64).sum(axis=0)   # (4, 3)
+        for row, k in zip(pooled, _DUALTASK_BLOCKS):
+            totals["sem" if k.startswith("sem_") else k] += row
+
+    # group_scale=2: a group holds about twice the change-head forward's live
+    # bytes per scene (a second decoder pass on each date, four probability
+    # rasters), so it takes half the scenes (the JAX package's choice)
+    _stream_wire_groups(
+        ds, bucket, ("x1", "x2", "y", "ysem1", "ysem2", "valid"),
+        run_group=lambda arrs: _dualtask_wire_counts(model, *arrs, device),
+        accumulate=accumulate, group_scale=2)
+    return {k: tuple(v) for k, v in totals.items()}

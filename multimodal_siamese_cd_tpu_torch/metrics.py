@@ -1,4 +1,4 @@
-"""Evaluation metrics (the JAX package's ``metrics.py:28-109``).
+"""Evaluation metrics (the JAX package's ``metrics.py:28-109, 206-232``).
 
   * :class:`MultiThresholdMetric` — TP/TN/FP/FN per threshold accumulated
     over samples as float64 on the host. The reference's FP/FN formulas are
@@ -8,6 +8,10 @@
   * :func:`confusion_at_thresholds` — the plain PyTorch formula for one
     sample's counts; :mod:`.ops.confusion` holds the CUDA kernel that
     computes the same counts on the card.
+  * :func:`strict_confusion_counts` and :func:`prob_metrics_from_counts` —
+    the offline assessment's strict rule ``pred = p > thr`` (the reference's
+    ``*_from_prob`` functions) and its pooled F1 / precision / recall; the
+    kernel's strict variant computes the same counts on the card.
 
 Thresholding replicates the reference's round-offset formulation
 ``round(y_pred - threshold + 0.5) >= 1`` (reference metrics.py:26) with
@@ -109,3 +113,30 @@ def confusion_at_thresholds(y_true, y_pred, thresholds, valid_mask=None):
     fp = ((~t & pred) * valid).sum(dim=1)
     fn = ((t & ~pred) * valid).sum(dim=1)
     return tp, tn, fp, fn
+
+
+def strict_confusion_counts(y_true, y_prob, valid=None, threshold=0.5):
+    """``(tp, fp, fn)`` float64 at one threshold with the strict rule
+    ``pred = prob > threshold``, ``gt = label > 0.5`` (the JAX package's
+    ``strict_confusion_counts``), summed over the valid pixels of one
+    sample; ``valid`` is any float weight, None for all pixels."""
+    y_prob = torch.as_tensor(y_prob)
+    t = torch.as_tensor(y_true, device=y_prob.device).reshape(-1) > 0.5
+    pred = y_prob.reshape(-1).float() > torch.tensor(
+        threshold, dtype=torch.float32, device=y_prob.device)
+    if valid is None:
+        v = torch.ones(t.shape, dtype=torch.float64, device=y_prob.device)
+    else:
+        v = torch.as_tensor(valid, device=y_prob.device).reshape(-1).double()
+    return (((t & pred) * v).sum(), ((~t & pred) * v).sum(),
+            ((t & ~pred) * v).sum())
+
+
+def prob_metrics_from_counts(tp, fp, fn):
+    """``(f1, precision, recall)`` from pooled strict-threshold counts, with
+    the reference's unclamped float64 divisions (the JAX package's
+    ``prob_metrics_from_counts``)."""
+    tp, fp, fn = (np.float64(v) for v in (tp, fp, fn))
+    p = tp / (tp + fp)
+    r = tp / (tp + fn)
+    return 2 * (p * r) / (p + r), p, r

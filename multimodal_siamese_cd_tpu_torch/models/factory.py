@@ -1,7 +1,7 @@
 """Model factory: ``create_network(cfg)`` keyed by ``cfg.MODEL.TYPE``
 (reference utils/networks.py:12-27; the JAX package's ``models/factory.py``).
 
-Slice 1 ports 'siameseunet' only; every other type raises
+Ported so far: 'siameseunet' and 'dtsiameseunet'; every other type raises
 ``NotImplementedError``. ``MODEL.PACKED_FULLRES`` is accepted and ignored:
 packing is a layout trick for the TPU's matrix units, and the port always
 builds the reference-shaped graph.
@@ -46,11 +46,17 @@ def create_network(cfg, device=None, generator: torch.Generator | None = None):
     moved, so one seed gives the same weights on every device."""
     device = resolve_device(device)
     model_type = cfg.MODEL.TYPE
-    if model_type != 'siameseunet':
+    if model_type not in _MODELS:
         raise NotImplementedError(
             f"MODEL.TYPE {model_type!r} is not ported yet (ROADMAP.md queue "
-            f"1); this package builds 'siameseunet'")
-    model = networks.SiameseUNet(
+            f"1); this package builds {sorted(_MODELS)}")
+    model = _MODELS[model_type](
         tuple(cfg.MODEL.TOPOLOGY), input_channels(cfg),
         cfg.MODEL.OUT_CHANNELS, compute_dtype(cfg), generator=generator)
     return model.to(device)
+
+
+_MODELS = {
+    'siameseunet': networks.SiameseUNet,
+    'dtsiameseunet': networks.DualTaskSiameseUNet,
+}

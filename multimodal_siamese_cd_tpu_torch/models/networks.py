@@ -1,9 +1,11 @@
-"""Change-detection networks (PyTorch, NCHW). Slice 1 ports 'siameseunet'.
+"""Change-detection networks (PyTorch, NCHW): 'siameseunet' and
+'dtsiameseunet'.
 
 ``SiameseUNet`` is the counterpart of the JAX package's ``SiameseUNet``
 (reference networks.py:123-154): a shared-weight stem and encoder applied to
 both dates, per-level feature differences ``f_t2 - f_t1``, one decoder and a
-1x1 head.
+1x1 head. ``DualTaskSiameseUNet`` (the JAX package's networks.py:149-200)
+adds a semantic decoder shared by both dates and an auxiliary head.
 
 Fresh initialization is chosen on purpose to match the JAX package, not
 torch's defaults: every conv and transposed-conv kernel is drawn
@@ -79,3 +81,44 @@ class SiameseUNet(nn.Module):
         f_t1 = self.encoder(self.inc(x_t1))
         f_t2 = self.encoder(self.inc(x_t2))
         return self.outc(self.decoder(_diff(f_t1, f_t2)))
+
+
+class DualTaskSiameseUNet(nn.Module):
+    """Siamese encoder with a change decoder and a semantic decoder shared by
+    both dates (reference networks.py:157-197). ``forward`` returns the
+    logits ``(change, sem_t1, sem_t2)``. The auxiliary change-from-semantics
+    head ``outc_sem_change`` takes no part in ``forward``; it is a trained
+    parameter set that the offline assessment applies through
+    :meth:`sem_change_head`."""
+
+    def __init__(self, topology: Sequence[int], in_channels: int,
+                 out_channels: int = 1,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.inc = InConv(in_channels, topology[0])
+        self.encoder = Encoder(topology)
+        self.decoder_change = Decoder(topology)
+        self.decoder_sem = Decoder(topology)
+        self.outc_change = OutConv(topology[0], out_channels)
+        self.outc_sem = OutConv(topology[0], out_channels)
+        self.outc_sem_change = OutConv(2 * out_channels, 1)
+        lecun_normal_(self, generator)
+
+    def forward(self, x_t1: torch.Tensor, x_t2: torch.Tensor):
+        f_t1 = self.encoder(self.inc(x_t1))
+        f_t2 = self.encoder(self.inc(x_t2))
+        out_change = self.outc_change(self.decoder_change(_diff(f_t1, f_t2)))
+        # t2 before t1, as the JAX package calls them: in train mode each
+        # call updates the shared decoder's BatchNorm running statistics
+        out_sem_t2 = self.outc_sem(self.decoder_sem(f_t2))
+        out_sem_t1 = self.outc_sem(self.decoder_sem(f_t1))
+        return out_change, out_sem_t1, out_sem_t2
+
+    def sem_change_head(self, logits_sem_t1: torch.Tensor,
+                        logits_sem_t2: torch.Tensor) -> torch.Tensor:
+        """The auxiliary head on the concatenated semantic logits
+        (assessment_semantics.py:117)."""
+        return self.outc_sem_change(torch.cat([logits_sem_t1, logits_sem_t2],
+                                              dim=1))

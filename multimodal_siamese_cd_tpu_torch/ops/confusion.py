@@ -1,10 +1,14 @@
-"""Per-scene confusion counts: the CUDA kernel and its plain version.
+"""Per-scene confusion counts: the CUDA kernel and its plain versions.
 
 ``confusion_counts(probs, y, valid, thresholds)`` returns ``(B, 4, T)``
-int64 counts in the row order tp, tn, fp, fn for ``B`` flat scenes. For
-CUDA tensors it launches the hand-written kernel ``csrc/confusion.cu``
-(built at first use by :mod:`._build`); for CPU tensors it runs the plain
-PyTorch version, :func:`confusion_counts_plain`. There is no switch and no
+int64 counts in the row order tp, tn, fp, fn for ``B`` flat scenes, with the
+training metric's rule ``round(p - thr + 0.5) >= 1``;
+``strict_confusion_counts`` returns the same counts with the offline
+assessment's rule ``p > thr``. For CUDA tensors both launch the hand-written
+kernel ``csrc/confusion.cu`` (the rule is a compile-time flag there, with
+one C entry point per rule; built at first use by :mod:`._build`); for CPU
+tensors they run the plain PyTorch versions, :func:`confusion_counts_plain`
+and :func:`strict_confusion_counts_plain`. There is no switch and no
 fallback: a kernel that fails to build or launch raises.
 
 The kernel replaces the JAX package's Pallas kernel
@@ -20,31 +24,31 @@ import ctypes
 
 import torch
 
-from ..metrics import confusion_at_thresholds
+from ..metrics import confusion_at_thresholds, strict_confusion_counts as _strict
 
 # the kernel keeps the thresholds in (dynamic) shared memory
 MAX_THRESHOLDS = 4096
 _THREADS = 256          # csrc/confusion.cu kThreads
 _BLOCKS_PER_SM = 8      # 2048 resident threads per SM / _THREADS
 
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    """The loaded C entry point, with its ctypes signature declared."""
-    global _fn
-    if _fn is None:
+def _kernel(strict: bool = False):
+    """The loaded C entry point of one rule, with its ctypes signature
+    declared."""
+    if strict not in _fns:
         from ._build import load_library
 
         lib = load_library("confusion")
-        fn = lib.mscd_confusion_counts
+        fn = lib.mscd_strict_confusion_counts if strict else lib.mscd_confusion_counts
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[strict] = fn
+    return _fns[strict]
 
 
 def confusion_counts_plain(probs: torch.Tensor, y: torch.Tensor,
@@ -59,6 +63,23 @@ def confusion_counts_plain(probs: torch.Tensor, y: torch.Tensor,
         return torch.zeros((0, 4, thresholds.numel()), dtype=torch.int64,
                            device=probs.device)
     return torch.stack(rows).round().to(torch.int64)
+
+
+def strict_confusion_counts_plain(probs: torch.Tensor, y: torch.Tensor,
+                                  valid: torch.Tensor,
+                                  thresholds: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the strict rule:
+    :func:`..metrics.strict_confusion_counts` per scene and threshold (tp,
+    fp, fn), with tn = valid - tp - fp - fn; ``(B, 4, T)`` int64."""
+    out = torch.zeros((probs.shape[0], 4, thresholds.numel()),
+                      dtype=torch.int64, device=probs.device)
+    for b in range(probs.shape[0]):
+        n_valid = (valid[b] != 0).sum()
+        for k, thr in enumerate(thresholds.tolist()):
+            tp, fp, fn = (v.round().to(torch.int64)
+                          for v in _strict(y[b], probs[b], valid[b], thr))
+            out[b, :, k] = torch.stack([tp, n_valid - tp - fp - fn, fp, fn])
+    return out
 
 
 def _check(probs, y, valid, thresholds) -> None:
@@ -92,6 +113,32 @@ def confusion_counts(probs: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
     _check(probs, y, valid, thresholds)
     if probs.device.type == "cpu":
         return confusion_counts_plain(probs, y, valid, thresholds)
+    out = _run(probs, y, valid, thresholds, strict=False)
+    if probs.shape[0]:
+        confusion_counts.launches += 1
+    return out
+
+
+def strict_confusion_counts(probs: torch.Tensor, y: torch.Tensor,
+                            valid: torch.Tensor,
+                            thresholds: torch.Tensor) -> torch.Tensor:
+    """:func:`confusion_counts` with the strict rule ``pred = p > thr``
+    (the JAX package's ``metrics.strict_confusion_counts``, behind the
+    dual-task assessment). CUDA tensors launch the kernel's strict variant
+    (and add one to ``strict_confusion_counts.launches``); CPU tensors take
+    :func:`strict_confusion_counts_plain`."""
+    _check(probs, y, valid, thresholds)
+    if probs.device.type == "cpu":
+        return strict_confusion_counts_plain(probs, y, valid, thresholds)
+    out = _run(probs, y, valid, thresholds, strict=True)
+    if probs.shape[0]:
+        strict_confusion_counts.launches += 1
+    return out
+
+
+def _run(probs, y, valid, thresholds, strict: bool) -> torch.Tensor:
+    """Allocate the zeroed counts and launch one rule's kernel on checked
+    non-CPU tensors."""
     if probs.device.type != "cuda":
         raise ValueError(f"no confusion kernel for device {probs.device}")
     if probs.shape[0] > 65535:
@@ -101,27 +148,28 @@ def confusion_counts(probs: torch.Tensor, y: torch.Tensor, valid: torch.Tensor,
     out = torch.zeros((probs.shape[0], 4, thresholds.numel()),
                       dtype=torch.int64, device=probs.device)
     if probs.shape[0]:
-        launch(probs, y, valid, thresholds, out)
-        confusion_counts.launches += 1
+        launch(probs, y, valid, thresholds, out, strict)
     return out
 
 
-def launch(probs, y, valid, thresholds, out) -> None:
-    """Launch the kernel on the current stream, adding into ``out``
+def launch(probs, y, valid, thresholds, out, strict: bool = False) -> None:
+    """Launch one rule's kernel on the current stream, adding into ``out``
     ((B, 4, T) int64). Arguments must already be checked, contiguous CUDA
-    tensors; ``confusion_counts`` is the entry point. Grid: enough blocks
-    to fill every SM, never more than one per 256 pixels of a scene."""
+    tensors; ``confusion_counts`` and ``strict_confusion_counts`` are the
+    entry points. Grid: enough blocks to fill every SM, never more than one
+    per 256 pixels of a scene."""
     n_scenes, n_pixels = probs.shape
     sms = torch.cuda.get_device_properties(probs.device).multi_processor_count
     per_scene = max(1, min(-(-n_pixels // _THREADS),
                            -(-sms * _BLOCKS_PER_SM // n_scenes)))
     with torch.cuda.device(probs.device):
         stream = torch.cuda.current_stream(probs.device).cuda_stream
-        err = _kernel()(probs.data_ptr(), y.data_ptr(), valid.data_ptr(),
-                        thresholds.data_ptr(), thresholds.numel(), n_scenes,
-                        n_pixels, out.data_ptr(), per_scene, stream)
+        err = _kernel(strict)(probs.data_ptr(), y.data_ptr(), valid.data_ptr(),
+                              thresholds.data_ptr(), thresholds.numel(), n_scenes,
+                              n_pixels, out.data_ptr(), per_scene, stream)
     if err != 0:
         raise RuntimeError(f"confusion kernel launch failed: cudaError {err}")
 
 
 confusion_counts.launches = 0
+strict_confusion_counts.launches = 0

@@ -7,9 +7,17 @@
 // counts.
 //
 // Function: for scene b and threshold k, over pixels i with valid[b,i] != 0,
-//   pred = rint((p - thr_k) + 0.5) >= 1    (f32, round half to even)
+//   pred = rint((p - thr_k) + 0.5) >= 1    (f32, round half to even; the
+//                                           training metric's rule)
+//   or, in the strict variant,
+//   pred = p > thr_k                        (the offline assessment's rule,
+//                                           metrics.py strict_confusion_counts)
 //   truth = y[b,i] != 0                     (== y > 0.5 on a uint8 label)
 //   out[b, 0..3, k] = (tp, tn, fp, fn)      int64
+// Neither rule predicts at p == thr_k (round(0.5) == 0). They differ just
+// above a threshold below 0.5, where p - thr_k is under half an ulp of 0.5
+// and the first rule's `+ 0.5` absorbs it (thr 0.3, p = 0.3 + 1 ulp: only
+// the strict rule predicts).
 //
 // Bound: bytes. Each pixel is read once, 6 bytes (f32 prob, u8 label, u8
 // mask), for a handful of integer and float operations, so the card's
@@ -41,6 +49,7 @@ struct Counters {
   unsigned int tp[kChunk];
 };
 
+template <bool kStrict>
 __device__ __forceinline__ void count_pixel(float p, unsigned char y,
                                             unsigned char v,
                                             const float (&thr)[kChunk],
@@ -52,9 +61,14 @@ __device__ __forceinline__ void count_pixel(float p, unsigned char y,
 #pragma unroll
   for (int k = 0; k < kChunk; ++k) {
     if (k < n_thr) {
-      // explicit round-to-nearest adds: no contraction or reordering
-      const float x = __fadd_rn(__fsub_rn(p, thr[k]), 0.5f);
-      const unsigned int pred = valid & (rintf(x) >= 1.0f);
+      bool above;
+      if constexpr (kStrict) {
+        above = p > thr[k];
+      } else {
+        // explicit round-to-nearest adds: no contraction or reordering
+        above = rintf(__fadd_rn(__fsub_rn(p, thr[k]), 0.5f)) >= 1.0f;
+      }
+      const unsigned int pred = valid & above;
       c.pred[k] += pred;
       c.tp[k] += pred & truth;
     }
@@ -67,7 +81,7 @@ __device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
   return x;
 }
 
-template <bool kVec>
+template <bool kVec, bool kStrict>
 __global__ void __launch_bounds__(kThreads)
 confusion_kernel(const float* __restrict__ probs,
                  const unsigned char* __restrict__ labels,
@@ -108,14 +122,14 @@ confusion_kernel(const float* __restrict__ probs,
         const float4 p = p4[i];
         const uchar4 y = y4[i];
         const uchar4 v = v4[i];
-        count_pixel(p.x, y.x, v.x, thr, n_thr, c);
-        count_pixel(p.y, y.y, v.y, thr, n_thr, c);
-        count_pixel(p.z, y.z, v.z, thr, n_thr, c);
-        count_pixel(p.w, y.w, v.w, thr, n_thr, c);
+        count_pixel<kStrict>(p.x, y.x, v.x, thr, n_thr, c);
+        count_pixel<kStrict>(p.y, y.y, v.y, thr, n_thr, c);
+        count_pixel<kStrict>(p.z, y.z, v.z, thr, n_thr, c);
+        count_pixel<kStrict>(p.w, y.w, v.w, thr, n_thr, c);
       }
     } else {
       for (long long i = start; i < n_pixels; i += stride)
-        count_pixel(p_row[i], y_row[i], v_row[i], thr, n_thr, c);
+        count_pixel<kStrict>(p_row[i], y_row[i], v_row[i], thr, n_thr, c);
     }
 
     // block reduction: warp shuffles, then across warps in shared memory
@@ -165,22 +179,41 @@ static bool vectorizable(const float* probs, const unsigned char* labels,
          (reinterpret_cast<uintptr_t>(valid) % 4 == 0);
 }
 
-// C interface, loaded with ctypes. `out` is a zeroed (B, 4, T) int64 tensor.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int mscd_confusion_counts(const float* probs, const unsigned char* labels,
-                                     const unsigned char* valid, const float* thresholds,
-                                     int n_thresholds, long long n_scenes,
-                                     long long n_pixels, long long* out,
-                                     int blocks_per_scene, void* stream) {
+template <bool kStrict>
+static int launch(const float* probs, const unsigned char* labels, const unsigned char* valid,
+                  const float* thresholds, int n_thresholds, long long n_scenes,
+                  long long n_pixels, long long* out, int blocks_per_scene, void* stream) {
   const dim3 grid(blocks_per_scene, static_cast<unsigned int>(n_scenes));
   const size_t smem = sizeof(float) * static_cast<size_t>(n_thresholds);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned long long* o = reinterpret_cast<unsigned long long*>(out);
   if (vectorizable(probs, labels, valid, n_pixels))
-    confusion_kernel<true><<<grid, kThreads, smem, s>>>(probs, labels, valid, thresholds,
-                                                        n_thresholds, n_pixels, o);
+    confusion_kernel<true, kStrict><<<grid, kThreads, smem, s>>>(
+        probs, labels, valid, thresholds, n_thresholds, n_pixels, o);
   else
-    confusion_kernel<false><<<grid, kThreads, smem, s>>>(probs, labels, valid, thresholds,
-                                                         n_thresholds, n_pixels, o);
+    confusion_kernel<false, kStrict><<<grid, kThreads, smem, s>>>(
+        probs, labels, valid, thresholds, n_thresholds, n_pixels, o);
   return static_cast<int>(cudaGetLastError());
+}
+
+// C interface, loaded with ctypes. `out` is a zeroed (B, 4, T) int64 tensor.
+// Returns the cudaError_t of the launch (0 on success). The first entry
+// point counts with the rounding rule, the second with the strict rule.
+extern "C" int mscd_confusion_counts(const float* probs, const unsigned char* labels,
+                                     const unsigned char* valid, const float* thresholds,
+                                     int n_thresholds, long long n_scenes,
+                                     long long n_pixels, long long* out,
+                                     int blocks_per_scene, void* stream) {
+  return launch<false>(probs, labels, valid, thresholds, n_thresholds, n_scenes, n_pixels,
+                       out, blocks_per_scene, stream);
+}
+
+extern "C" int mscd_strict_confusion_counts(const float* probs, const unsigned char* labels,
+                                            const unsigned char* valid,
+                                            const float* thresholds, int n_thresholds,
+                                            long long n_scenes, long long n_pixels,
+                                            long long* out, int blocks_per_scene,
+                                            void* stream) {
+  return launch<true>(probs, labels, valid, thresholds, n_thresholds, n_scenes, n_pixels,
+                      out, blocks_per_scene, stream);
 }

@@ -1,10 +1,10 @@
 """Training core and forward passes (the JAX package's ``train_lib.py``).
 
-Slice 2 ports the supervised step: the wire stack is cast to the compute
+The supervised and dual-task steps: the wire stack is cast to the compute
 dtype and augmented on the device, the model runs in train mode (bf16
-autocast on the card, fp32 params; fp32 on the CPU), the loss is taken on
-fp32 logits, and AdamW updates the parameters in place. The dual-task and
-semi-supervised steps come with their slices.
+autocast on the card, fp32 params; fp32 on the CPU), the losses are taken on
+fp32 logits, and AdamW updates the parameters in place. The semi-supervised
+step comes with its slice.
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ def split_stack(stack: torch.Tensor, layout: dict):
             y_sem_t2)
 
 
-def _autocast(dtype: torch.dtype, device: torch.device):
+def autocast(dtype: torch.dtype, device: torch.device):
     """bf16 autocast on the card when ``dtype`` is bf16, else nothing."""
     if device.type == "cuda" and dtype == torch.bfloat16:
         return torch.autocast("cuda", dtype=torch.bfloat16)
@@ -105,22 +105,27 @@ def augment(stack: torch.Tensor, cfg, layout: dict, dtype: torch.dtype,
                               **decisions)
 
 
-def make_supervised_train_step(model, optimizer, cfg):
-    """Supervised change-detection step (reference train_supervised.py:63-77;
-    the JAX package's ``make_supervised_train_step``):
-    ``loss = criterion(logits, y_change)``.
+def _make_step(model, optimizer, cfg, losses_of):
+    """One optimizer step around ``losses_of(outputs, y_change, y_sem_t1,
+    y_sem_t2) -> {"loss": ..., ...}`` (fp32 scalars; ``loss`` is the one
+    differentiated).
 
-    Returns ``step(stack, is_labeled, global_step) -> {"loss": tensor}``:
-    ``stack`` is the wire batch on the model's device, ``global_step`` the
-    number of steps taken before this one (with ``cfg.SEED`` it seeds the
+    Returns ``step(stack, is_labeled, global_step) -> metrics``: ``stack``
+    is the wire batch on the model's device, ``global_step`` the number of
+    steps taken before this one (with ``cfg.SEED`` it seeds the
     augmentation). The step computes in the config's dtype on the card and
-    in float32 on the CPU. The loss is left on the device (no
-    synchronisation)."""
+    in float32 on the CPU; the metrics are left on the device (no
+    synchronisation).
+
+    A parameter the loss does not reach (the dual-task model's auxiliary
+    head) gets a zero gradient before the update, as ``jax.value_and_grad``
+    gives it in the JAX package: ``optax.adamw`` then still decays it by
+    ``lr·wd`` every step, where ``torch.optim.AdamW`` would skip a parameter
+    whose gradient is None."""
     accum = int(cfg.TRAINER.get("GRAD_ACCUM", 1))
     if accum > 1:
         raise NotImplementedError(
             f"TRAINER.GRAD_ACCUM={accum} is not yet ported (ROADMAP item 12)")
-    criterion = losses.get_criterion(cfg.MODEL.LOSS_TYPE)
     layout = stack_layout(cfg)
     device = next(model.parameters()).device
     dtype = compute_dtype(cfg) if device.type == "cuda" else torch.float32
@@ -130,16 +135,63 @@ def make_supervised_train_step(model, optimizer, cfg):
         model.train()
         stack_aug = augment(stack, cfg, layout, dtype,
                             augment_generator(cfg.SEED, global_step, device))
-        x_t1, x_t2, y_change, _, _ = split_stack(stack_aug, layout)
-        with _autocast(dtype, device):
-            logits = model(x_t1, x_t2)
-        loss = criterion(logits.float(), y_change)
+        x_t1, x_t2, *labels = split_stack(stack_aug, layout)
+        with autocast(dtype, device):
+            outputs = model(x_t1, x_t2)
+        metrics = losses_of(outputs, *labels)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        metrics["loss"].backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         optimizer.step()
-        return {"loss": loss.detach()}
+        return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def make_supervised_train_step(model, optimizer, cfg):
+    """Supervised change-detection step (reference train_supervised.py:63-77;
+    the JAX package's ``make_supervised_train_step``):
+    ``loss = criterion(logits, y_change)``. Metrics ``{"loss"}``; see
+    :func:`_make_step` for the step's contract."""
+    criterion = losses.get_criterion(cfg.MODEL.LOSS_TYPE)
+
+    def losses_of(logits, y_change, y_sem_t1, y_sem_t2) -> dict:
+        return {"loss": criterion(logits.float(), y_change)}
+
+    return _make_step(model, optimizer, cfg, losses_of)
+
+
+def make_dualtask_train_step(model, optimizer, cfg):
+    """Dual-task step (the JAX package's ``make_dualtask_train_step``, the
+    intended semantics of the reference's train_supervised_dualtask.py:
+    64-92): ``loss = (change_loss + (sem_t1_loss + sem_t2_loss) / 2) / 2``.
+    Metrics ``{"loss", "change_loss", "sem_loss"}``; see :func:`_make_step`
+    for the step's contract."""
+    criterion = losses.get_criterion(cfg.MODEL.LOSS_TYPE)
+
+    def losses_of(outputs, y_change, y_sem_t1, y_sem_t2) -> dict:
+        logits_change, logits_sem_t1, logits_sem_t2 = (o.float() for o in outputs)
+        change_loss = criterion(logits_change, y_change)
+        sem_loss = (criterion(logits_sem_t1, y_sem_t1)
+                    + criterion(logits_sem_t2, y_sem_t2)) / 2.0
+        return {"loss": (change_loss + sem_loss) / 2.0,
+                "change_loss": change_loss, "sem_loss": sem_loss}
+
+    return _make_step(model, optimizer, cfg, losses_of)
+
+
+_STEPS = {"supervised": make_supervised_train_step,
+          "dualtask": make_dualtask_train_step}
+
+
+def make_train_step(model, optimizer, cfg, regime: str):
+    """The step of ``regime``: 'supervised' or 'dualtask'."""
+    if regime not in _STEPS:
+        raise ValueError(f"unknown or unported training regime {regime!r}; "
+                         f"ported: {sorted(_STEPS)}")
+    return _STEPS[regime](model, optimizer, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -148,9 +200,9 @@ def make_supervised_train_step(model, optimizer, cfg):
 
 def eval_forward(model, x_t1: torch.Tensor, x_t2: torch.Tensor) -> torch.Tensor:
     """Eval-mode change probabilities ``(B, 1, H, W)`` float32 for NCHW
-    inputs: sigmoid of the change head (the JAX package's ``eval_forward``,
-    train_lib.py:529-537; reference evaluation.py:22; multi-head models
-    come with their slices). Puts ``model`` in
+    inputs: sigmoid of the change head, the first output of a multi-head
+    model (the JAX package's ``eval_forward``, train_lib.py:529-537;
+    reference evaluation.py:22). Puts ``model`` in
     eval mode and runs under ``torch.inference_mode()``. On the card the
     forward runs under bf16 autocast when the model's compute dtype is bf16
     (``TRAINER.PRECISION``, default bf16) and in fp32 otherwise; on the CPU
@@ -158,5 +210,8 @@ def eval_forward(model, x_t1: torch.Tensor, x_t2: torch.Tensor) -> torch.Tensor:
     ``torch.backends.cudnn.allow_tf32`` for its convolutions."""
     model.eval()
     dtype = getattr(model, "compute_dtype", torch.float32)
-    with torch.inference_mode(), _autocast(dtype, x_t1.device):
-        return torch.sigmoid(model(x_t1, x_t2).float())
+    with torch.inference_mode(), autocast(dtype, x_t1.device):
+        out = model(x_t1, x_t2)
+        if isinstance(out, tuple):
+            out = out[0]
+        return torch.sigmoid(out.float())

@@ -17,6 +17,12 @@ from multimodal_siamese_cd_tpu_torch import (experiment_manager, parsers,
 
 
 def main(argv=None) -> None:
+    run_cli('supervised', argv)
+
+
+def run_cli(regime: str, argv=None) -> None:
+    """Parse the training CLI's arguments and train ``cfg`` in ``regime``
+    (shared by the supervised and dual-task entry scripts)."""
     args = parsers.training_argument_parser().parse_known_args(argv)[0]
     cfg = experiment_manager.setup_cfg(args)
 
@@ -33,7 +39,7 @@ def main(argv=None) -> None:
     )
 
     try:
-        trainers.run_training(cfg, device=args.device)
+        trainers.run_training(cfg, regime, device=args.device)
     except KeyboardInterrupt:
         try:
             sys.exit(0)

@@ -1,15 +1,17 @@
-"""Training loop (the JAX package's ``trainers.py``), supervised regime.
+"""Training loop (the JAX package's ``trainers.py``), supervised and
+dual-task regimes.
 
-``run_training(cfg)`` reproduces the reference entry point's
-control flow (train_supervised.py:17-116): epoch and step accounting, the
-DEBUG short-circuit, LOG_FREQ evaluation windows, the wandb metric names
-(``loss``, ``labeled_percentage``, ``time``, ``train_time``, ``step``,
-``epoch``) and the checkpoint epochs.
+``run_training(cfg, regime)`` reproduces the reference entry points'
+control flow (train_supervised.py:17-116; the dual-task script's intended
+one): epoch and step accounting, the DEBUG short-circuit, LOG_FREQ
+evaluation windows, the wandb metric names (the regime's losses,
+``labeled_percentage``, ``time``, ``train_time``, ``step``, ``epoch``) and
+the checkpoint epochs. Per-regime differences live in ``_REGIMES``.
 
 The hot loop: threaded host loader (crop-only wire stacks) -> pinned,
 non-blocking copies on a side stream -> one step (augment + forward +
 backward + AdamW) on the card. Loss scalars stay on the card until a log
-window closes. Dual-task and semi-supervised regimes come in later slices.
+window closes. The semi-supervised regime comes in a later slice.
 """
 
 from __future__ import annotations
@@ -77,17 +79,39 @@ def _loader(cfg) -> TrainLoader:
     )
 
 
+# Per-regime differences of the otherwise identical loop (the JAX package's
+# trainers.py:352-371):
+#   keys            — device metric scalars accumulated per log window; the
+#                     window's payload is their means and
+#                     labeled_percentage 100 (every sample labeled)
+#   debug_test_eval — the DEBUG short-circuit runs a test eval first
+#                     (train_supervised.py:84-86)
+#   ckpt_in_debug   — checkpoints are also written in DEBUG runs
+_REGIMES = {
+    'supervised': dict(keys=('loss',), debug_test_eval=True,
+                       ckpt_in_debug=False),
+    'dualtask': dict(keys=('loss', 'sem_loss', 'change_loss'),
+                     debug_test_eval=True, ckpt_in_debug=False),
+}
+
+
 def _window_summary(sets: dict) -> dict:
     """Reduce a log window's device scalars (one stack, one host fetch) to
-    the supervised wandb payload (metric names as the reference's)."""
-    losses = [float(v) for v in torch.stack(sets['loss']).cpu()] \
-        if sets['loss'] else []
-    return {'loss': float(np.mean(losses)) if losses else 0.0,
-            'labeled_percentage': 100}
+    the regime's wandb payload (metric names as the reference's)."""
+    flat = [v for values in sets.values() for v in values]
+    fetched = torch.stack(flat).cpu().tolist() if flat else []
+    out, i = {}, 0
+    for key, values in sets.items():
+        chunk = fetched[i:i + len(values)]
+        out[key] = float(np.mean(chunk)) if chunk else 0.0
+        i += len(values)
+    out['labeled_percentage'] = 100
+    return out
 
 
-def run_training(cfg, device=None) -> None:
-    """Train ``cfg`` supervised; ``device`` defaults to the card."""
+def run_training(cfg, regime: str, device=None) -> None:
+    """Train ``cfg`` in ``regime`` ('supervised' or 'dualtask'; another
+    raises ``ValueError``); ``device`` defaults to the card."""
     device = resolve_device(device)
     print_run_config(cfg, str(device))
     raw = cfg.TRAINER.get('STEPS_PER_EXECUTION', None)
@@ -96,7 +120,7 @@ def run_training(cfg, device=None) -> None:
               f'host dispatch; multi-step execution is not ported)')
 
     model, optimizer, start_step = _create_or_resume(cfg, device)
-    step_fn = train_lib.make_supervised_train_step(model, optimizer, cfg)
+    step_fn = train_lib.make_train_step(model, optimizer, cfg, regime)
     loader = _loader(cfg)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
@@ -110,8 +134,8 @@ def run_training(cfg, device=None) -> None:
               f'(step {start_step}, {steps_per_epoch} steps/epoch)')
         # an unbroken run would have consumed start_epoch loader epochs
         loader.set_epoch(start_epoch)
-    _run_epochs(cfg, model, optimizer, step_fn, loader, steps_per_epoch,
-                start_step, start_epoch, device)
+    _run_epochs(cfg, _REGIMES[regime], model, optimizer, step_fn, loader,
+                steps_per_epoch, start_step, start_epoch, device)
 
 
 def _sync(device: torch.device) -> None:
@@ -119,7 +143,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _run_epochs(cfg, model, optimizer, step_fn, loader, steps_per_epoch,
+def _run_epochs(cfg, spec, model, optimizer, step_fn, loader, steps_per_epoch,
                 start_step, start_epoch, device) -> None:
     epochs = cfg.TRAINER.EPOCHS
     global_step = start_step
@@ -132,7 +156,7 @@ def _run_epochs(cfg, model, optimizer, step_fn, loader, steps_per_epoch,
     for epoch in range(start_epoch + 1, epochs + 1):
         print(f'Starting epoch {epoch}/{epochs}.')
         start = timeit.default_timer()
-        sets: dict[str, list] = {'loss': []}
+        sets: dict[str, list] = {k: [] for k in spec['keys']}
 
         for batch in prefetch_to_device(loader, device):
             m = step_fn(batch['stack'], batch['is_labeled'], global_step)
@@ -141,8 +165,9 @@ def _run_epochs(cfg, model, optimizer, step_fn, loader, steps_per_epoch,
             global_step += 1
             epoch_float = global_step / steps_per_epoch
 
-            if cfg.DEBUG:   # one step, one test eval (train_supervised.py:84-86)
-                evaluate('test')
+            if cfg.DEBUG:   # one step (train_supervised.py:84-86)
+                if spec['debug_test_eval']:
+                    evaluate('test')
                 break
 
             if global_step % cfg.LOG_FREQ == 0:
@@ -172,7 +197,8 @@ def _run_epochs(cfg, model, optimizer, step_fn, loader, steps_per_epoch,
         evaluate('validation')
         evaluate('test')
 
-        if epoch in cfg.SAVE_CHECKPOINTS and not cfg.DEBUG:
+        if epoch in cfg.SAVE_CHECKPOINTS and (spec['ckpt_in_debug']
+                                              or not cfg.DEBUG):
             print('saving network', flush=True)
             checkpoints.save_checkpoint(model, optimizer, epoch, global_step, cfg)
 

@@ -26,6 +26,8 @@ PORT_MODULES = [
     "losses", "ops.bn_stats", "models.batchnorm", "data.augmentations",
     "data.loader", "wandb_compat", "checkpoints", "parsers",
     "experiment_manager", "trainers", "train_supervised",
+    # slice 3: dual-task training and assessment, the conv3x3 op
+    "train_supervised_dualtask", "ops.conv3x3",
 ]
 
 
@@ -38,6 +40,7 @@ def test_every_slice_module_exists():
         assert (PORT / (mod.replace(".", "/") + ".py")).is_file(), mod
     assert (PORT / "ops" / "csrc" / "confusion.cu").is_file()
     assert (PORT / "ops" / "csrc" / "bn_stats.cu").is_file()
+    assert (PORT / "ops" / "csrc" / "conv3x3.cu").is_file()
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)

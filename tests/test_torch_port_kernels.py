@@ -1,5 +1,5 @@
-"""The kernel wrappers and kernels (confusion counts, bn_stats), with no JAX
-in the process.
+"""The kernel wrappers and kernels (confusion counts with both rules,
+bn_stats, conv3x3), with no JAX in the process.
 
 This file imports only the port, torch and numpy, so it also runs on the
 machine with the card, where JAX is not used:
@@ -8,8 +8,9 @@ machine with the card, where JAX is not used:
 
 There the ``cuda``-marked tests hold each CUDA kernel against its plain
 version (confusion: exact integer equality; bn_stats: within 1e-5 of
-Σ|a·b| per channel, and bit-equal from launch to launch); here, without a
-card, they skip inside the test. The other tests check the wrappers'
+Σ|a·b| per channel; conv3x3: atol 1e-4 on float32 inputs, one bf16 ulp
+plus 1e-4 on bf16 inputs; each bit-equal from launch to launch); here,
+without a card, they skip inside the test. The other tests check the wrappers'
 contracts on the CPU.
 """
 
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from multimodal_siamese_cd_tpu_torch.models.batchnorm import BatchNorm2d
-from multimodal_siamese_cd_tpu_torch.ops import bn_stats, confusion
+from multimodal_siamese_cd_tpu_torch.ops import bn_stats, confusion, conv3x3
 
 torch.set_num_threads(1)
 
@@ -193,3 +194,126 @@ def test_cuda_train_batchnorm_launches_the_kernel_forward_and_backward(dtype):
     for i, (cpu, card) in enumerate(zip(*results)):
         tol = lowp if i < 2 else 1e-4
         torch.testing.assert_close(card, cpu, atol=tol, rtol=tol)
+
+
+# --- the strict rule -----------------------------------------------------------
+
+def test_strict_rule_at_ties_and_one_ulp_away():
+    """Neither rule predicts at p == thr; both predict one ulp above 0.5;
+    one ulp above 0.3 only the strict rule predicts (the rounding rule's
+    ``+ 0.5`` absorbs the difference)."""
+    for thr, differ in ((np.float32(0.5), 0), (np.float32(0.3), 1)):
+        probs = np.array([[thr, np.nextafter(thr, np.float32(1)),
+                           np.nextafter(thr, np.float32(0))]], np.float32)
+        y = np.array([[1, 1, 0]], np.uint8)
+        args = _torch(probs, y, np.ones_like(y), np.array([thr]))
+        strict = confusion.strict_confusion_counts(*args)[0, :, 0].tolist()
+        rounded = confusion.confusion_counts(*args)[0, :, 0].tolist()
+        assert strict == [1, 1, 0, 1]           # tp, tn, fp, fn
+        assert rounded == [1 - differ, 1, 0, 1 + differ]
+
+
+def test_strict_cpu_tensors_take_the_plain_version_without_a_launch():
+    args = _torch(*_inputs(2, 3, 333, [0.3, 0.5]))
+    before = confusion.strict_confusion_counts.launches
+    got = confusion.strict_confusion_counts(*args)
+    assert confusion.strict_confusion_counts.launches == before
+    assert torch.equal(got, confusion.strict_confusion_counts_plain(*args))
+    assert int(got[:, :, 0].sum()) == int(args[2].sum())   # every valid pixel once
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1_000_003, 1_024_000])
+def test_cuda_strict_kernel_matches_plain(n):
+    """Needs the card: the strict variant equals its plain version, ties and
+    +-1 ulp neighbours of every threshold included, on both paths; two
+    launches give the same counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the confusion kernel runs only there")
+    for thresholds in ([0.5], [0.3], np.linspace(0.05, 0.95, 11)):
+        args = tuple(t.cuda() for t in _torch(*_inputs(n + 1, 3, n, thresholds)))
+        before = confusion.strict_confusion_counts.launches
+        got = confusion.strict_confusion_counts(*args)
+        assert confusion.strict_confusion_counts.launches == before + 1
+        assert torch.equal(got, confusion.strict_confusion_counts_plain(*args))
+        assert torch.equal(got, confusion.strict_confusion_counts(*args))
+
+
+# --- conv3x3 --------------------------------------------------------------------
+
+def _conv_inputs(b, h, w, cin, cout, dtype, seed=0):
+    """Images in [0, 1) and He-scaled weights, so outputs are of order 1."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((b, h, w, cin), generator=gen).to(dtype)
+    wt = torch.randn((3, 3, cin, cout), generator=gen) * (2.0 / (9 * cin)) ** 0.5
+    return x, wt.to(dtype)
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of ``t`` (8 significant bits)."""
+    e = torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def test_conv3x3_wrapper_rejects_what_it_does_not_take():
+    x, w = _conv_inputs(1, 5, 6, 8, 16, torch.float32)
+    with pytest.raises(ValueError, match="x must be"):
+        conv3x3.conv3x3(x.double(), w)
+    with pytest.raises(ValueError, match="x must be"):
+        conv3x3.conv3x3(x[0], w)
+    with pytest.raises(ValueError, match="w must be"):
+        conv3x3.conv3x3(x, w[:, :, :4])
+    with pytest.raises(ValueError, match="w must be"):
+        conv3x3.conv3x3(x, w[:2])
+
+
+def test_conv3x3_cpu_tensors_take_the_plain_version_without_a_launch():
+    x, w = _conv_inputs(2, 7, 9, 6, 8, torch.bfloat16)
+    before = conv3x3.conv3x3.launches
+    got = conv3x3.conv3x3(x, w)
+    assert conv3x3.conv3x3.launches == before
+    assert got.shape == (2, 7, 9, 8) and got.dtype == torch.bfloat16
+    assert torch.equal(got, conv3x3.conv3x3_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 32, 64, 128, 16), (8, 32, 32, 512, 512),
+                                   (1, 37, 29, 64, 64), (2, 16, 17, 8, 24),
+                                   (3, 1, 1, 40, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_conv3x3_matches_plain(shape, dtype):
+    """Needs the card: against the plain version in float32 without TF32,
+    atol 1e-4 for float32 inputs; for bf16 inputs at most one bf16 ulp of
+    the plain value plus 1e-4, the float32 summation difference, which
+    exceeds an ulp where the sum cancels to near zero; two launches
+    bit-equal. Shapes: the JAX test's, the U-Net's deepest
+    level, ragged tiles, a Cout that is not a multiple of 16, a chunk of
+    Cin cut short and a 1 x 1 image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the conv3x3 kernel runs only there")
+    x, w = (t.cuda() for t in _conv_inputs(*shape, dtype, seed=sum(shape)))
+    before = conv3x3.conv3x3.launches
+    got = conv3x3.conv3x3(x, w)
+    assert conv3x3.conv3x3.launches == before + 1
+    assert got.shape == (*shape[:3], shape[4]) and got.dtype == dtype
+    assert torch.equal(got, conv3x3.conv3x3(x, w))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = conv3x3.conv3x3_plain(x, w)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-4
+    else:
+        assert bool((err <= bf16_ulp(want) + 1e-4).all())
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_rejects_channels_the_kernel_cannot_load():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, w = (t.cuda() for t in _conv_inputs(1, 8, 8, 6, 16, torch.float32))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3x3.conv3x3(x, w)

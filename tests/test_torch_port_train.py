@@ -500,4 +500,4 @@ def test_run_training_defaults_to_the_card(fixture_dataset):
         pytest.skip("this host has a CUDA card; the default device resolves")
     _, tcfg = _cfgs(fixture_dataset)
     with pytest.raises(RuntimeError, match="CUDA"):
-        trainers.run_training(tcfg)
+        trainers.run_training(tcfg, "supervised")
