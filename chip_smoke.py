@@ -27,9 +27,12 @@ script exits non-zero:
           shape, the Pallas tool's shape, every U-Net level at batch 8 and
           256^2 crops and a ragged shape, bf16 and f32, against the plain
           version in float32 without TF32 (f32: atol 1e-4; bf16: one bf16
-          ulp plus 1e-4), two launches bit-equal; time per launch beside
-          its bound, the plain version and cuDNN's ``F.conv2d`` on
-          channels_last bf16 tensors;
+          ulp plus 1e-4), two launches bit-equal; the kernel's ptxas report
+          per instantiation; then, outside the counted path, time per
+          launch from CUDA graphs replayed in turns with cuDNN's
+          ``F.conv2d`` on channels_last bf16 tensors (kernel, cuDNN, cuDNN,
+          kernel), beside the bound, the plain version and the wrapper's
+          host time per call;
   4. the inference path at full width: a synthetic SpaceNet7-layout split
      of ~1000^2 scenes, ``configs/siamese.yaml`` (topology [64,128,256,512],
      6 channels per date, bf16), seeded random weights and BN statistics,
@@ -58,6 +61,7 @@ torch, numpy and the standard library.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -110,6 +114,9 @@ CONV_SHAPES = [(2, 32, 64, 128, 16), (8, 256, 256, 128, 64),
                (8, 256, 256, 64, 64), (8, 128, 128, 128, 128),
                (8, 64, 64, 256, 256), (8, 32, 32, 512, 512), (1, 37, 29, 64, 64)]
 CONV_MAIN = (8, 256, 256, 64, 64)
+# phase 3c timing: launches per CUDA graph, rounds of (kernel, cuDNN, cuDNN,
+# kernel) replays, host calls of the wrapper timed on the host clock
+CONV_INNER, CONV_ROUNDS, CONV_HOST_CALLS = 20, 5, 50
 
 
 def log(*args) -> None:
@@ -432,14 +439,74 @@ def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
+def graph_time_ms(fns: dict, order: list, inner: int, rounds: int) -> dict:
+    """Per-call device time of each function in ``fns``: each is captured
+    once as a CUDA graph of ``inner`` back-to-back calls, and the graphs
+    are replayed ``rounds`` times in ``order`` (e.g. kernel, cuDNN, cuDNN,
+    kernel), each replay timed with CUDA events; the median per name."""
+    graphs = {}
+    for name, fn in fns.items():
+        fn()                                     # warm-up, outside the capture
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(inner):
+                fn()
+        graphs[name] = g
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[name].replay()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / inner)
+    del graphs
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _conv_inputs(gen, shape, dtype):
+    b, h, w, cin, cout = shape
+    dev = torch.device("cuda")
+    x = torch.rand((b, h, w, cin), generator=gen, device=dev).to(dtype)
+    wt = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+          * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+    return x, wt
+
+
+def _ptxas_summary(name: str) -> list:
+    """One line per kernel instantiation in ``name``'s build log: its
+    template arguments (channel tile, 64-pixel blocks per warpgroup, output
+    type), registers and spill bytes."""
+    out, entry, spills = [], None, ""
+    for line in _build.BUILD_INFO[name]["log"].splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"kernelILi(\d+)ELi(\d+)E(f|13__nv_bfloat16)EE", line)
+            entry = (f"<{m.group(1)}, {m.group(2)}, "
+                     f"{'float' if m.group(3) == 'f' else 'bf16'}>"
+                     if m else line.split("'")[1])
+            spills = ""
+        elif entry and "spill stores" in line:
+            spills = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            out.append(f"{entry}: {line.split(':', 1)[1].strip()}; {spills}")
+            entry = None
+    return out
+
+
 def phase_conv3x3(card: dict) -> dict:
     """conv3x3's own path (the op through its entry point; no model calls
     it) at every CONV_SHAPES shape in bf16 and f32, each output held
-    against the plain version; a second launch bit-equal; times per launch
-    beside the bound, the plain version and cuDNN."""
+    against the plain version and a second launch bit-equal; then, outside
+    the counted path, times per launch from CUDA graphs replayed in
+    alternating order (kernel, cuDNN, cuDNN, kernel) beside the bound, the
+    plain version, cuDNN and the wrapper's host time per call."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
     bw, _, tensor_flops = peaks(card["name"])
+    for line in _ptxas_summary("conv3x3"):
+        log(f"  ptxas conv3x3_kernel{line}")
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False   # the plain f32 conv is f32
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -449,17 +516,15 @@ def phase_conv3x3(card: dict) -> dict:
         "bf16 inputs one bf16 ulp + 1e-4; second launch bit-equal):")
     try:
         # ---- the op's path, with the kernel's launch count around it ----
+        gen = torch.Generator(device=dev).manual_seed(3)
         conv3x3.conv3x3.launches = 0
         for shape in CONV_SHAPES:
             b, h, w, cin, cout = shape
             for dtype in (torch.bfloat16, torch.float32):
-                x = torch.rand((b, h, w, cin), generator=gen, device=dev).to(dtype)
-                wt = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
-                      * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+                x, wt = _conv_inputs(gen, shape, dtype)
                 y = conv3x3.conv3x3(x, wt)                  # the path
-                wb = wt.to(torch.bfloat16).contiguous()
                 again = torch.empty_like(y)
-                conv3x3.launch(x, wb, again)                # uncounted repeat
+                conv3x3.launch(*conv3x3.prepare(x, wt), again)   # uncounted repeat
                 want = conv3x3.conv3x3_plain(x, wt)
                 err = (y.float() - want.float()).abs()
                 if dtype == torch.float32:
@@ -475,37 +540,56 @@ def phase_conv3x3(card: dict) -> dict:
                     raise AssertionError(f"conv3x3 {shape} {dtype}: max |kernel - "
                                          f"plain| {float(err.max()):.3e}, "
                                          f"bit-equal {bitwise}")
-                # times: kernel (launch alone), plain, cuDNN on bf16
-                # channels_last tensors (the same function for bf16 inputs)
-                k_ms = cuda_time_ms(lambda: conv3x3.launch(x, wb, again),
-                                    runs=10, inner=10)
-                p_ms = cuda_time_ms(lambda: conv3x3.conv3x3_plain(x, wt), runs=5,
-                                    warmup=1)
-                lib_ms = None
+                log(f"  {shape} {str(dtype)[6:]}: max |err| {float(err.max()):.3e}, "
+                    f"bit-equal, plan {conv3x3.plan(b, h, w, cin, cout, dtype)}")
+                del x, wt, y, again, want, err
+        launches = conv3x3.conv3x3.launches
+        # ------------------------------------------------------------------
+        log(f"conv3x3 times on {card['smi']}: CUDA graphs of {CONV_INNER} "
+            f"launches, median of {CONV_ROUNDS} rounds of kernel, cuDNN, cuDNN, "
+            f"kernel; cuDNN is F.conv2d on channels_last bf16 (the same function "
+            f"for bf16 inputs); host = the wrapper's host time per call:")
+        gen = torch.Generator(device=dev).manual_seed(4)
+        for shape in CONV_SHAPES:
+            b, h, w, cin, cout = shape
+            for dtype in (torch.bfloat16, torch.float32):
+                x, wt = _conv_inputs(gen, shape, dtype)
+                xb, wk = conv3x3.prepare(x, wt)
+                y = torch.empty((b, h, w, cout), dtype=dtype, device=dev)
+                fns = {"kernel": lambda: conv3x3.launch(xb, wk, y)}
                 if dtype == torch.bfloat16:
                     xc = x.permute(0, 3, 1, 2)
                     wc = wt.permute(3, 2, 0, 1).contiguous(
                         memory_format=torch.channels_last)
-                    lib_ms = cuda_time_ms(lambda: F.conv2d(xc, wc, padding=1),
-                                          runs=10, inner=10)
+                    fns["cudnn"] = lambda: F.conv2d(xc, wc, padding=1)
+                order = ["kernel", "cudnn", "cudnn", "kernel"] if len(fns) == 2 \
+                    else ["kernel"]
+                got = graph_time_ms(fns, order, CONV_INNER, CONV_ROUNDS)
+                k_ms, lib_ms = got["kernel"], got.get("cudnn")
+                p_ms = cuda_time_ms(lambda: conv3x3.conv3x3_plain(x, wt), runs=5,
+                                    warmup=1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(CONV_HOST_CALLS):
+                    conv3x3.conv3x3(x, wt)
+                host_us = (time.perf_counter() - t0) / CONV_HOST_CALLS * 1e6
+                torch.cuda.synchronize()
                 n_bytes = (x.numel() * x.element_size() + wt.numel() * wt.element_size()
                            + y.numel() * y.element_size())
                 n_ops = 2 * b * h * w * cin * cout * 9
                 bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / tensor_flops * 1e3
                 bound = max(bytes_ms, ops_ms)
-                times[(shape, dtype)] = (k_ms, p_ms, lib_ms, bound,
-                                         "bytes" if bytes_ms >= ops_ms else "operations")
-                log(f"  {shape} {str(dtype)[6:]}: max |err| {float(err.max()):.3e}, "
-                    f"bit-equal; kernel {k_ms * 1e3:.1f} us "
-                    f"({n_ops / k_ms / 1e9:.1f} TFLOP/s), bound {bound * 1e3:.1f} us "
-                    f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: "
-                    f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP), plain "
-                    f"{p_ms * 1e3:.1f} us, cuDNN "
-                    + (f"{lib_ms * 1e3:.1f} us" if lib_ms else "n/a (no single "
-                       "call rounds f32 operands to bf16)"))
-                del x, wt, wb, y, again, want, err
-        launches = conv3x3.conv3x3.launches
-        # ------------------------------------------------------------------
+                bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+                times[(shape, dtype)] = (k_ms, p_ms, lib_ms, bound, bound_by)
+                log(f"  {shape} {str(dtype)[6:]}: kernel {k_ms * 1e3:.1f} us "
+                    f"({n_ops / k_ms / 1e9:.1f} TFLOP/s, {bound / k_ms * 100:.1f}% of "
+                    f"the bound {bound * 1e3:.1f} us by {bound_by}: "
+                    f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP); cuDNN "
+                    + (f"{lib_ms * 1e3:.1f} us (kernel / cuDNN {k_ms / lib_ms:.2f})"
+                       if lib_ms else "n/a (no single call rounds f32 operands to "
+                       "bf16)")
+                    + f"; plain {p_ms * 1e3:.1f} us; host {host_us:.1f} us per call")
+                del x, wt, xb, wk, y, fns
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()

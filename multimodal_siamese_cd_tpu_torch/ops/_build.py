@@ -8,9 +8,11 @@ use, from the sources in the checkout only, with
 
 into ``build/torch_ext/`` at the repository root, and loaded with ctypes.
 This needs no ninja, no pybind and no PyTorch headers, so a build takes
-seconds. The library name carries a hash of the source and the flags, so
-an edited source is rebuilt and a stale library is never loaded. A build or
-load failure raises; nothing falls back to a plain version.
+seconds. Sources may include the shared headers ``csrc/*.cuh`` (PTX
+wrappers). The library name carries a hash of the source, every header and
+the flags (:func:`library_path`), so an edited source or header is rebuilt
+and a stale library is never loaded. A build or load failure raises;
+nothing falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -51,6 +53,17 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/{name}.cu`` builds to: ``BUILD_DIR/{name}_{hash}.so``,
+    the hash taken over the source, every ``csrc/*.cuh`` header (names and
+    contents, in name order) and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/{name}.cu`` if needed and return the loaded library.
     Different kernels may build at once from different threads."""
@@ -60,8 +73,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        lib_path = BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
+        lib_path = library_path(name)
         info = {"seconds": 0.0, "log": ""}
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

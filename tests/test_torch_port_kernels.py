@@ -276,19 +276,110 @@ def test_conv3x3_cpu_tensors_take_the_plain_version_without_a_launch():
     assert torch.equal(got, conv3x3.conv3x3_plain(x, w))
 
 
+# conv3x3 (B, H, W, Cin, Cout) shapes of chip_smoke.py's phase 3c: the JAX
+# test's, the Pallas tool's, every U-Net level at batch 8 and 256^2 crops,
+# and a ragged one
+CONV_SHAPES = [(2, 32, 64, 128, 16), (8, 256, 256, 128, 64),
+               (8, 256, 256, 64, 64), (8, 128, 128, 128, 128),
+               (8, 64, 64, 256, 256), (8, 32, 32, 512, 512), (1, 37, 29, 64, 64)]
+# ragged ones: W below every tile width, H of 1, chunks of Cin cut short,
+# channel tiles of 8 and 16, 1 x 1 images
+CONV_RAGGED = [(2, 16, 17, 8, 24), (3, 1, 1, 40, 8), (2, 9, 5, 64, 64),
+               (3, 1, 37, 64, 32), (2, 20, 24, 40, 16), (2, 12, 40, 256, 256)]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES + CONV_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_plan_fits_the_card(shape, dtype):
+    """The kernel's tiling, from plain Python: shared memory within a
+    block's 227 KB, a channel tile the kernel is built for that divides
+    Cout, at most one persistent block per SM and no more blocks than
+    tiles, tiles of 128 or 256 pixels (whole 64-pixel blocks of whole tile
+    rows; 256 only where those still fill every SM) covering the image, TMA
+    boxes of at most 256 elements a side, rows of 16 to 128 bytes."""
+    b, h, w, cin, cout = shape
+    p = conv3x3.plan(b, h, w, cin, cout, dtype)
+    assert p.smem_bytes <= 227 * 1024
+    assert p.smem_bytes == conv3x3.smem_bytes(p.tile_w, p.block_n, p.m_blocks,
+                                              p.out_bytes, p.a_stages, p.b_stages)
+    assert p.block_n in (conv3x3.BLOCK_NS if p.m_blocks == 1 else conv3x3.TWO_BLOCK_NS)
+    assert conv3x3.staging_bytes(p.block_n, p.m_blocks, p.out_bytes) \
+        <= conv3x3.MAX_STAGING
+    assert p.m_blocks == 1 or p.tiles >= 132 * conv3x3.BLOCKS_PER_SM
+    assert (8 * -(-cout // 8)) % p.block_n == 0
+    assert 2 <= p.a_stages <= conv3x3.MAX_A_STAGES
+    assert 2 <= p.b_stages <= conv3x3.MAX_B_STAGES
+    assert 1 <= p.grid <= min(p.tiles, 132 * conv3x3.BLOCKS_PER_SM)
+    assert p.tile_w * p.tile_h == 128 * p.m_blocks and 64 % p.tile_w == 0
+    assert p.tiles == b * -(-h // p.tile_h) * -(-w // p.tile_w) * (cout // p.block_n)
+    for box in p.boxes.values():
+        assert all(1 <= n <= 256 for n in box)
+    for name, elem in (("x", 2), ("w", 2), ("y", p.out_bytes)):
+        assert p.boxes[name][0] * elem in (16, 32, 64, 128)
+
+
+def test_conv3x3_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3x3.plan(1, 8, 8, 6, 16, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3x3.plan(1, 8, 8, 16, 12, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_prepare_gives_the_kernels_operands(dtype):
+    """bf16 x, one cast and no copy of a contiguous bf16 input, and K-major
+    (3, 3, Cout, Cin) bf16 weights, from a non-contiguous view too."""
+    x, w = _conv_inputs(2, 5, 7, 16, 24, dtype)
+    xv = x.transpose(1, 2).contiguous().transpose(1, 2)     # NHWC view, strided
+    xb, wk = conv3x3.prepare(xv, w)
+    assert xb.dtype == wk.dtype == torch.bfloat16
+    assert xb.is_contiguous() and wk.is_contiguous()
+    assert torch.equal(xb, x.to(torch.bfloat16))
+    assert torch.equal(wk, w.to(torch.bfloat16).permute(0, 1, 3, 2))
+    if dtype == torch.bfloat16:
+        assert conv3x3.prepare(x, w)[0].data_ptr() == x.data_ptr()
+
+
+def test_header_edit_gives_a_new_library(tmp_path, monkeypatch):
+    """A library's name hashes its source and every shared ``*.cuh``
+    header, so an edited header is rebuilt, not loaded stale; needs no
+    nvcc."""
+    from multimodal_siamese_cd_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "ptx.cuh"\nextern "C" int f() { return 0; }\n')
+    (csrc / "ptx.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "torch_ext")
+    first = _build.library_path("k")
+    assert first.parent == tmp_path / "torch_ext" and first.name.startswith("k_")
+    assert _build.library_path("k") == first
+    (csrc / "ptx.cuh").write_text("#pragma once\n// edited\n")
+    second = _build.library_path("k")
+    assert second != first
+    (csrc / "other.cuh").write_text("#pragma once\n")
+    assert _build.library_path("k") not in (first, second)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 32, 64, 128, 16), (8, 32, 32, 512, 512),
                                    (1, 37, 29, 64, 64), (2, 16, 17, 8, 24),
-                                   (3, 1, 1, 40, 8)])
+                                   (3, 1, 1, 40, 8), (2, 9, 5, 64, 64),
+                                   (3, 1, 37, 64, 32), (2, 20, 24, 40, 16),
+                                   (2, 12, 40, 256, 256), (1, 64, 64, 128, 128),
+                                   (4, 128, 128, 64, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_conv3x3_matches_plain(shape, dtype):
     """Needs the card: against the plain version in float32 without TF32,
     atol 1e-4 for float32 inputs; for bf16 inputs at most one bf16 ulp of
     the plain value plus 1e-4, the float32 summation difference, which
     exceeds an ulp where the sum cancels to near zero; two launches
-    bit-equal. Shapes: the JAX test's, the U-Net's deepest
-    level, ragged tiles, a Cout that is not a multiple of 16, a chunk of
-    Cin cut short and a 1 x 1 image."""
+    bit-equal. Shapes: the JAX test's, the U-Net's deepest level, ragged
+    tiles, Cout 24 (channel tiles of 8) and 16, Cin 8 and 40 (a chunk of 64
+    cut short), a 1 x 1 image, W below every tile width, H of 1 with three
+    images (no box may read across images), channel tiles of 256 and 128,
+    and two 64-pixel blocks per warpgroup (enough tiles at 64 channels)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the conv3x3 kernel runs only there")
     x, w = (t.cuda() for t in _conv_inputs(*shape, dtype, seed=sum(shape)))
@@ -297,6 +388,10 @@ def test_cuda_conv3x3_matches_plain(shape, dtype):
     assert conv3x3.conv3x3.launches == before + 1
     assert got.shape == (*shape[:3], shape[4]) and got.dtype == dtype
     assert torch.equal(got, conv3x3.conv3x3(x, w))
+    _assert_conv_close(got, x, w, dtype)
+
+
+def _assert_conv_close(got, x, w, dtype):
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -308,6 +403,25 @@ def test_cuda_conv3x3_matches_plain(shape, dtype):
         assert float(err.max()) <= 1e-4
     else:
         assert bool((err <= bf16_ulp(want) + 1e-4).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_conv3x3_takes_a_non_contiguous_view(dtype):
+    """Needs the card: an NHWC view with permuted strides and one that
+    starts mid-vector (not 16-byte aligned) give the plain version's
+    result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the conv3x3 kernel runs only there")
+    x, w = (t.cuda() for t in _conv_inputs(2, 19, 23, 72, 32, dtype, seed=7))
+    strided = x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    offset = flat[1:].view(x.shape)
+    for view in (strided, offset):
+        assert not view.is_contiguous() or view.data_ptr() % 16
+        got = conv3x3.conv3x3(view, w)
+        _assert_conv_close(got, x, w, dtype)
 
 
 @pytest.mark.cuda
