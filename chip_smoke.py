@@ -51,7 +51,20 @@ script exits non-zero:
      moves), a profile of one step, then ``evaluation.
      dualtask_quantitative_counts`` over the 20 scenes with the strict
      kernel's launches counted around it, and every group's kernel counts
-     against the plain version on the card's probabilities.
+     against the plain version on the card's probabilities;
+  7. the semi-supervised path at full width over the same split plus 4
+     unlabeled AOIs: ``trainers.run_training(cfg, 'semisupervised')`` on
+     ``configs/siamese_mmcr_alpha0500.yaml`` (whatevernet, batch 4, 8
+     labeled + 4 unlabeled AOIs; 112 bn_stats launches a step, finite
+     window losses, both loss terms above 0, the run's labeled share 8/12),
+     the run's own kernel launches against the plain versions on their
+     inputs (bn_stats at the first launch of each shape, dtype and
+     ``a is b``, as in 3b; every confusion launch of its evaluations,
+     exact), its checkpoint rebuilt, one all-labeled and one all-unlabeled step
+     (each term 0 where its partition is absent), a timed and profiled
+     step; then one staged step each of whatevernet2 and dtsiameseunet
+     (semi-supervised) and unet and dualstreamunet (supervised), each with
+     its bn_stats launches counted.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports only the port,
@@ -60,6 +73,7 @@ torch, numpy and the standard library.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -81,6 +95,7 @@ from multimodal_siamese_cd_tpu_torch.data.dataset import MultimodalCDDataset
 from multimodal_siamese_cd_tpu_torch.data.loader import TrainLoader, prefetch_to_device
 from multimodal_siamese_cd_tpu_torch.data.synthetic import generate_fixture_dataset
 from multimodal_siamese_cd_tpu_torch.metrics import MultiThresholdMetric
+from multimodal_siamese_cd_tpu_torch.models import batchnorm
 from multimodal_siamese_cd_tpu_torch.models.factory import create_network
 from multimodal_siamese_cd_tpu_torch.ops import _build, bn_stats, confusion, conv3x3
 from multimodal_siamese_cd_tpu_torch.train_lib import eval_forward
@@ -107,6 +122,10 @@ BN_RAGGED = [(1, 3, 17, 19), (1, 3, 256, 256), (2, 3, 10, 10), (3, 5, 7, 9),
 # training phases: 8 AOIs x 48 = 384 crops = 48 steps of 8 at batch 8, four
 # LOG_FREQ windows of 12 (the first is warm-up); 2 + 2 AOIs to validate/test
 TRAIN_AOIS, TRAIN_MULTIPLIER, TRAIN_LOG_FREQ = 8, 48, 12
+# the semi-supervised phase: 4 unlabeled AOIs written after the labeled ones;
+# (8 + 4) x 16 = 192 crops = 48 steps of 4 at batch 4
+UNLABELED_AOIS = [f"smoke_unlabeled_{i}" for i in range(4)]
+SEMISUP_MULTIPLIER = 16
 # conv3x3 (B, H, W, Cin, Cout): the JAX test's shape, the Pallas tool's own
 # (Cin padded to 128), every U-Net level at batch 8 and 256^2 crops, and a
 # ragged one; the U-Net's top level is the row's headline shape
@@ -337,6 +356,18 @@ def phase_kernel(card: dict) -> tuple:
 
 # -- phase 3b -----------------------------------------------------------------
 
+def _bn_error(got, a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """``bn_stats`` sums ``got`` against the plain version in float64 on
+    ``(a, b)``: the largest |kernel - ref| over its limit (1e-5 · Σ|a|, resp.
+    1e-5 · Σ|a·b|, per channel) and the largest |kernel - ref|."""
+    ref = bn_stats.bn_stats_reference(a, b, torch.float64)
+    scale = (a.double().abs().sum(dim=(0, 2, 3)),
+             (a.double() * b.double()).abs().sum(dim=(0, 2, 3)))
+    diff = [(g.to(r.device).double() - r).abs() for g, r in zip(got, ref)]
+    ratio = max(float((d / (1e-5 * m + 1e-30)).max()) for d, m in zip(diff, scale))
+    return ratio, max(float(d.max()) for d in diff)
+
+
 def phase_bn_stats(card: dict) -> dict:
     """bn_stats against its plain version in float64, at every BN shape of a
     full-width step and at ragged shapes; determinism; times at the largest
@@ -354,13 +385,7 @@ def phase_bn_stats(card: dict) -> dict:
                 bb = a if same else b
                 got = bn_stats.bn_stats(a, bb)
                 again = bn_stats.bn_stats(a, bb)
-                ref = bn_stats.bn_stats_reference(a, bb, torch.float64)
-                scale = (a.double().abs().sum(dim=(0, 2, 3)),
-                         (a.double() * bb.double()).abs().sum(dim=(0, 2, 3)))
-                ratio = max(float(((g.double() - r).abs() / (1e-5 * m + 1e-30)).max())
-                            for g, r, m in zip(got, ref, scale))
-                err = max(float((g.double() - r).abs().max())
-                          for g, r in zip(got, ref))
+                ratio, err = _bn_error(got, a, bb)
                 bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
                 worst, max_err = max(worst, ratio), max(max_err, err)
                 if ratio > 1.0 or not bitwise:
@@ -611,12 +636,17 @@ def phase_conv3x3(card: dict) -> dict:
 # -- phase 4 ------------------------------------------------------------------
 
 def write_split(root: Path) -> list:
+    """The labeled AOIs, then UNLABELED_AOIS (written after them, so the
+    labeled scenes are those of a split without them); returns the labeled
+    ones."""
     aois = [f"smoke_aoi_{i}" for i in range(N_AOIS)]
     t0 = time.perf_counter()
     generate_fixture_dataset(root, seed=11, scene_size=(AOI_SIDE, AOI_SIDE),
-                             n_timestamps=3, aois={a: True for a in aois})
-    log(f"synthetic split: {N_AOIS} labeled AOIs, 3 timestamps, sides "
-        f"{AOI_SIDE}..{AOI_SIDE + 16} px, written in "
+                             n_timestamps=3,
+                             aois={**{a: True for a in aois},
+                                   **{a: False for a in UNLABELED_AOIS}})
+    log(f"synthetic split: {N_AOIS} labeled and {len(UNLABELED_AOIS)} unlabeled "
+        f"AOIs, 3 timestamps, sides {AOI_SIDE}..{AOI_SIDE + 16} px, written in "
         f"{time.perf_counter() - t0:.1f} s")
     return aois
 
@@ -784,12 +814,17 @@ def _train_cfg(root: Path, out: Path, aois: list, name: str = "siamese"):
     return cfg
 
 
-def bn_per_step(topology, decoder_calls: int = 1) -> int:
-    """Train-mode BatchNorm calls of one step: the stem and every Down on
-    each date (two each), and every Up (two each) of each decoder call —
-    28 at full width for siameseunet (one decoder call), 44 for
-    dtsiameseunet (the change decoder, the semantic one on both dates)."""
-    return 2 * (2 + 2 * len(topology)) + decoder_calls * 2 * len(topology)
+def bn_per_step(topology, decoder_calls: int = 1, encoder_calls: int = 2,
+                streams: int = 1) -> int:
+    """Train-mode BatchNorm calls of one step: in each stream, the stem and
+    every Down (two each) on each encoder call (one per date in a Siamese
+    stream, one on the stacked dates in an early-fusion one), and every Up
+    (two each) of each decoder call. At full width: 28 for siameseunet, 44
+    for dtsiameseunet (the change decoder, the semantic one on both dates),
+    56 for whatevernet (two Siamese streams), 36 for whatevernet2 and
+    dualstreamunet (two early-fusion streams), 18 for unet."""
+    return streams * (encoder_calls * (2 + 2 * len(topology))
+                      + decoder_calls * 2 * len(topology))
 
 
 def _records(out: Path, name: str) -> list:
@@ -1115,6 +1150,288 @@ def phase_dualtask(card: dict, rows: dict, dev: torch.device, root: Path,
     torch.cuda.empty_cache()
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+def _semisup_cfg(root: Path, out: Path, aois: list, name: str):
+    cfg = _train_cfg(root, out, aois, name)
+    cfg.DATASET.UNLABELED_IDS = UNLABELED_AOIS
+    cfg.DATALOADER.TRAINING_MULTIPLIER = SEMISUP_MULTIPLIER
+    return cfg
+
+
+def _partition_batch(ds, labeled: bool, size: int, dev: torch.device) -> dict:
+    """A batch of ``size`` training crops of labeled or of unlabeled AOIs
+    alone, on the card."""
+    idx = [i for i, lab in enumerate(ds.labeled) if lab == labeled][:size]
+    stack = np.stack([ds.get(i, np.random.default_rng([3, i]))["stack"] for i in idx])
+    return {"stack": torch.from_numpy(stack).to(dev),
+            "is_labeled": torch.full((size,), float(labeled), device=dev)}
+
+
+def _staged_step(dev: torch.device, root: Path, aois: list, name: str,
+                 regime: str, expect: int) -> str:
+    """One staged step of ``name``'s model under ``regime`` at full width on
+    a loader batch: a warm-up step, then three timed with CUDA events and
+    their bn_stats launches counted; ``expect`` launches per step."""
+    cfg = _semisup_cfg(root, root / "unused", aois, name)
+    model = create_network(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(cfg.SEED))
+    optimizer = train_lib.make_optimizer(model, cfg)
+    step_fn = train_lib.make_train_step(model, optimizer, cfg, regime)
+    loader = TrainLoader(MultimodalCDDataset(cfg, "training"),
+                         cfg.TRAINER.BATCH_SIZE, num_workers=0, seed=1)
+    batch = next(prefetch_to_device(loader, dev))
+    out = step_fn(batch["stack"], batch["is_labeled"], 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    step_ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"], 1),
+                           runs=3, warmup=0)
+    per_step = bn_stats.bn_stats.launches / 3
+    losses = {k: float(v) for k, v in out.items()}
+    line = (f"{cfg.MODEL.TYPE} ({name}, {regime}, batch {cfg.TRAINER.BATCH_SIZE}, "
+            f"{int(sum(batch['is_labeled'].tolist()))} labeled): {step_ms:.1f} ms "
+            f"per step (CUDA events, median of 3), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, bn_stats launches "
+            f"per step {per_step:g} (expected {expect}), loss {losses['loss']:.6f}")
+    if per_step != expect or not all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"staged step: {line}")
+    del model, optimizer, step_fn, batch
+    torch.cuda.empty_cache()
+    return line
+
+
+@contextlib.contextmanager
+def _watch(module, name: str, keep):
+    """Route the path's calls of the kernel wrapper ``module.name`` (the
+    name the calling module looks up) through ``keep(args, out)`` after
+    the wrapper, which still launches, and counts, once per call."""
+    wrapper = getattr(module, name)
+
+    def watched(*args):
+        out = wrapper(*args)
+        keep(args, out)
+        return out
+
+    setattr(module, name, watched)
+    try:
+        yield
+    finally:
+        setattr(module, name, wrapper)
+
+
+def _check_path_launches(rows: dict, dev: torch.device, bn_seen: dict,
+                         conf_calls: list) -> None:
+    """The path's own kernel outputs against the plain versions on the same
+    inputs: bn_stats at the first launch of every (shape, dtype, a is b)
+    the run gave it (float64 plain, the limit of phase 3b, and a relaunch
+    bit-equal), and every rounding-rule confusion launch (exact)."""
+    worst, err = 0.0, 0.0
+    for (shape, dtype, same), (a, b, got) in bn_seen.items():
+        a = a.to(dev)
+        b = a if same else b.to(dev)
+        ratio, e = _bn_error(got, a, b)
+        again = bn_stats.bn_stats(a, b)
+        bitwise = all(torch.equal(g.to(dev), h) for g, h in zip(got, again))
+        worst, err = max(worst, ratio), max(err, e)
+        log(f"  bn_stats path launch {shape} {str(dtype)[6:]} a is b {same}: "
+            f"error / limit {ratio:.4f}, relaunch bit-equal {bitwise}")
+        if ratio > 1.0 or not bitwise:
+            raise AssertionError(f"bn_stats on the semi-supervised path's input "
+                                 f"{shape} {dtype} same={same}: error ratio "
+                                 f"{ratio:.3g} (limit 1), bit-equal {bitwise}")
+    rows["bn_stats"]["max_abs_err"] = max(rows["bn_stats"]["max_abs_err"], err)
+    conf_err = 0
+    for args, got in conf_calls:
+        args = tuple(t.to(dev) for t in args)
+        conf_err = max(conf_err, int((got.to(dev) - confusion.confusion_counts_plain(
+            *args)).abs().max()))
+    rows["confusion_counts"]["max_abs_err"] = max(
+        rows["confusion_counts"]["max_abs_err"], conf_err)
+    log(f"  the path's bn_stats launches at {len(bn_seen)} input signatures: "
+        f"within the limit (worst {worst:.4f} of it, max |kernel - ref| "
+        f"{err:.3e}); its {len(conf_calls)} confusion launches: max |kernel - "
+        f"plain| {conf_err} on {sum(int(a[0].numel()) for a, _ in conf_calls)} "
+        f"probabilities")
+    if not bn_seen or not conf_calls or conf_err != 0:
+        raise AssertionError("the semi-supervised path's confusion counts != "
+                             "plain, or no launch was kept")
+
+
+def phase_semisup(card: dict, rows: dict, dev: torch.device, root: Path,
+                  aois: list) -> None:
+    out = root / "semisup_out"
+    out.mkdir()
+    cfg = _semisup_cfg(root, out, aois, "siamese_mmcr_alpha0500")
+    a = cfg.AUGMENTATION
+    log(f"semi-supervised training: {cfg.MODEL.TYPE} topology "
+        f"{list(cfg.MODEL.TOPOLOGY)}, batch {cfg.TRAINER.BATCH_SIZE}, "
+        f"{a.CROP_SIZE}^2 crops, {TRAIN_AOIS} labeled + {len(UNLABELED_AOIS)} "
+        f"unlabeled AOIs x {cfg.DATALOADER.TRAINING_MULTIPLIER}, precision "
+        f"{cfg.TRAINER.get('PRECISION', 'bf16')}, loss {cfg.MODEL.LOSS_TYPE}, "
+        f"consistency {cfg.CONSISTENCY_TRAINER.LOSS_TYPE} alpha "
+        f"{cfg.CONSISTENCY_TRAINER.LOSS_FACTOR}, LOG_FREQ {cfg.LOG_FREQ}")
+    # host copies of the path's kernel inputs and outputs, to hold them
+    # against the plain versions once the counts are read: bn_stats at the
+    # first launch of each signature (the first step), every confusion launch
+    bn_seen, conf_calls = {}, []
+
+    def keep_bn(args, out):
+        a, b = args
+        key = (tuple(a.shape), a.dtype, a is b)
+        if key not in bn_seen:
+            bn_seen[key] = (a.detach().cpu(),
+                            None if a is b else b.detach().cpu(),
+                            tuple(o.detach().cpu() for o in out))
+
+    def keep_conf(args, out):
+        conf_calls.append((tuple(t.detach().cpu() for t in args), out.cpu()))
+
+    wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl", out_dir=out)
+    try:
+        with _watch(batchnorm, "bn_stats", keep_bn), \
+                _watch(evaluation, "confusion_counts", keep_conf):
+            # ---- the semi-supervised path, with the launch counts around it --
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            trainers.run_training(cfg, "semisupervised", device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            bn_launches, conf_launches, _ = _counts()
+            # ------------------------------------------------------------------
+        peak_run = torch.cuda.max_memory_allocated()
+    finally:
+        wandb_compat.finish()
+    records = _records(out, cfg.NAME)
+    windows = [r for r in records if "train_time" in r]
+    steps = windows[-1]["step"] if windows else 0
+    topology = cfg.MODEL.TOPOLOGY
+    expect = 2 * bn_per_step(topology, streams=2)   # forward + backward
+    rows["bn_stats"]["launches"] = bn_launches
+    rows["confusion_counts"]["launches"] = conf_launches
+    log(f"run_training semisupervised: {steps} steps in {wall:.1f} s wall (with "
+        f"its evals); launches bn_stats {bn_launches} ({bn_launches / max(steps, 1):.1f} "
+        f"per step, expected {expect}), confusion {conf_launches}; peak device "
+        f"memory {peak_run / 2**30:.2f} GiB")
+    if bn_launches != expect * steps or steps != 48:
+        raise AssertionError(f"bn_stats launched {bn_launches} times in {steps} "
+                             f"steps, expected {expect} per step over 48")
+    if conf_launches < 1:
+        raise AssertionError("model_evaluation never launched the confusion kernel")
+    _check_path_launches(rows, dev, bn_seen, conf_calls)
+    del bn_seen, conf_calls
+    keys = ("loss", "sup_loss", "cons_loss", "fusion_loss", "stream1_loss",
+            "stream2_loss")
+    patches = []
+    for r in windows:
+        rate = cfg.LOG_FREQ * cfg.TRAINER.BATCH_SIZE / r["train_time"]
+        patches.append(rate)
+        log(f"  window to step {r['step']}: " + ", ".join(
+            f"{k} {r[k]:.6f}" for k in keys)
+            + f", labeled {r['labeled_percentage']:.2f}%, {rate:.2f} patches/s, "
+            f"window time {r['time']:.3f} s")
+        if not all(np.isfinite([r[k] for k in keys])):
+            raise AssertionError(f"non-finite semi-supervised losses at step {r['step']}")
+    share = statistics.mean(r["labeled_percentage"] for r in windows)
+    log(f"  labeled share over the run {share:.6f}% (expected {800 / 12:.6f}%: "
+        f"{TRAIN_AOIS} of {TRAIN_AOIS + len(UNLABELED_AOIS)} AOIs, whole epoch)")
+    if len(patches) != 4 or abs(share - 800 / 12) > 1e-9:
+        raise AssertionError(f"{len(patches)} windows, labeled share {share}")
+    if not (max(r["sup_loss"] for r in windows) > 0
+            and max(r["cons_loss"] for r in windows) > 0):
+        raise AssertionError("a loss term stayed 0 over the whole run")
+    log(f"semi-supervised training throughput (host clock, batch "
+        f"{cfg.TRAINER.BATCH_SIZE} x {a.CROP_SIZE}^2, {card['smi']}): "
+        f"{statistics.median(patches[1:]):.2f} patches/s, median of windows 2-4 "
+        f"(window 1 is warm-up: {patches[0]:.2f})")
+    evals = [r for r in records if "test F1" in r]
+    log(f"  in-training evaluation (fusion head): test F1 "
+        f"{evals[-1]['test F1']:.6f} at step {evals[-1]['step']}")
+
+    # the checkpoint rebuilds the model; its parameters moved and are finite
+    ckpt = checkpoints.checkpoint_file(cfg, 1)
+    model, optimizer, step = checkpoints.load_checkpoint(1, cfg, device=dev)
+    init = create_network(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(cfg.SEED))
+    with torch.no_grad():
+        moved = [float((p - q).abs().max()) for p, q in
+                 zip(model.parameters(), init.parameters())]
+        finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    # AdamW's step counters stay on the host (on the card each would cost a
+    # device-to-host copy per parameter tensor at every step), its moments
+    # go to the card
+    state = list(optimizer.state.values())
+    placed = (all(s["step"].device.type == "cpu" for s in state)
+              and all(s["exp_avg_sq"].device.type == "cuda" for s in state))
+    log(f"checkpoint {ckpt.name} ({ckpt.stat().st_size / 2**20:.1f} MiB) at step "
+        f"{step}: {type(model).__name__}, {sum(m > 0 for m in moved)} of "
+        f"{len(moved)} parameter tensors changed (max |dw| {max(moved):.3e}), all "
+        f"finite {finite}; AdamW step counters on the host, moments on the card: "
+        f"{placed}")
+    if (type(model).__name__ != "WhateverNet" or step != steps or not placed
+            or sum(m > 0 for m in moved) < len(moved) // 2 or not finite):
+        raise AssertionError("semi-supervised checkpoint: wrong model or step, "
+                             "parameters unchanged or not finite, or AdamW's "
+                             "state misplaced")
+    del init
+
+    # one all-labeled and one all-unlabeled step: the absent term is 0
+    step_fn = train_lib.make_train_step(model, optimizer, cfg, "semisupervised")
+    ds = MultimodalCDDataset(cfg, "training")
+    for labeled, absent, present in ((True, "cons_loss", "sup_loss"),
+                                     (False, "sup_loss", "cons_loss")):
+        batch = _partition_batch(ds, labeled, cfg.TRAINER.BATCH_SIZE, dev)
+        _reset_counts()
+        got = {k: float(v) for k, v in
+               step_fn(batch["stack"], batch["is_labeled"], step).items()}
+        log(f"  all-{'labeled' if labeled else 'unlabeled'} step: {absent} "
+            f"{got[absent]}, loss {got['loss']:.6f} == {present} "
+            f"{got[present]:.6f}, n_labeled {got['n_labeled']:g}, bn_stats launches "
+            f"{bn_stats.bn_stats.launches}")
+        if (got[absent] != 0.0 or got["loss"] != got[present] or got[present] <= 0
+                or bn_stats.bn_stats.launches != expect):
+            raise AssertionError(f"all-{'labeled' if labeled else 'unlabeled'} "
+                                 f"step: {got}")
+
+    # one step alone on a loader batch: device time, peak, launches, profile
+    loader = TrainLoader(ds, cfg.TRAINER.BATCH_SIZE, num_workers=0, seed=1)
+    batch = next(prefetch_to_device(loader, dev))
+    for _ in range(2):
+        step_fn(batch["stack"], batch["is_labeled"], step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    step_ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"],
+                                           step), runs=5, warmup=0)
+    per_step = bn_stats.bn_stats.launches / 5
+    log(f"one semi-supervised step on a staged batch "
+        f"({int(sum(batch['is_labeled'].tolist()))} of {cfg.TRAINER.BATCH_SIZE} "
+        f"labeled; CUDA events, median of 5): {step_ms:.1f} ms = "
+        f"{cfg.TRAINER.BATCH_SIZE / step_ms * 1e3:.2f} patches/s of device time; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"bn_stats launches per step {per_step:g}")
+    if per_step != expect:
+        raise AssertionError(f"{per_step} bn_stats launches per semi-supervised step")
+    profile_breakdown("one semi-supervised training step",
+                      lambda: step_fn(batch["stack"], batch["is_labeled"], step),
+                      top=12, match="bn_stats")
+    del model, optimizer, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # the rest of the factory: one staged step each
+    for name, regime, expect_bn in (
+            ("unet_mmcr_alpha0500", "semisupervised",
+             bn_per_step(topology, encoder_calls=1, streams=2)),
+            ("dtsiamese_ssl", "semisupervised", bn_per_step(topology, decoder_calls=3)),
+            ("unet", "supervised", bn_per_step(topology, encoder_calls=1)),
+            ("baseline_dualstream", "supervised",
+             bn_per_step(topology, encoder_calls=1, streams=2))):
+        log("  staged step " + _staged_step(dev, root, aois, name, regime,
+                                            2 * expect_bn))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -1131,6 +1448,7 @@ def main() -> None:
         phase_main_path(card, rows["confusion_counts"], dev, root, aois)
         phase_train(card, rows, dev, root, aois)
         phase_dualtask(card, rows, dev, root, aois)
+        phase_semisup(card, rows, dev, root, aois)
     finally:
         tmp.cleanup()
     log(f"kernels: {json.dumps(list(rows))}; chip_smoke wall "

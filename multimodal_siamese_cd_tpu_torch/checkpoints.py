@@ -66,11 +66,17 @@ def load_checkpoint(epoch, cfg, device=None):
     """Rebuild model + AdamW on ``device`` (default: the card) and restore
     them (reference networks.py:41-56). Accepts the reference's
     ``module.``-prefixed ``network`` and a bare ``state_dict``. Returns
-    ``(model, optimizer, step)``."""
+    ``(model, optimizer, step)``.
+
+    The file is read onto the host: ``load_state_dict`` moves the weights
+    and AdamW's moments to the parameters' device and leaves AdamW's step
+    counters on the host, where ``torch.optim.AdamW`` reads them. Read onto
+    the card, each counter would cost a device-to-host copy and a wait per
+    parameter tensor at every step."""
     device = resolve_device(device)
     model = create_network(cfg, device=device)
     optimizer = make_optimizer(model, cfg)
-    ckpt = torch.load(checkpoint_file(cfg, epoch), map_location=device,
+    ckpt = torch.load(checkpoint_file(cfg, epoch), map_location="cpu",
                       weights_only=True)
     network = {k[len(_PREFIX):] if k.startswith(_PREFIX) else k: v
                for k, v in ckpt['network'].items()}

@@ -1,7 +1,9 @@
 """Model factory: ``create_network(cfg)`` keyed by ``cfg.MODEL.TYPE``
 (reference utils/networks.py:12-27; the JAX package's ``models/factory.py``).
 
-Ported so far: 'siameseunet' and 'dtsiameseunet'; every other type raises
+Builds every type of the reference factory: 'unet', 'dualstreamunet',
+'siameseunet', 'dtsiameseunet', 'whatevernet' and 'whatevernet2'.
+'siamunet_diff', which the JAX package adds, is not ported yet and raises
 ``NotImplementedError``. ``MODEL.PACKED_FULLRES`` is accepted and ignored:
 packing is a layout trick for the TPU's matrix units, and the port always
 builds the reference-shaped graph.
@@ -52,11 +54,16 @@ def create_network(cfg, device=None, generator: torch.Generator | None = None):
             f"1); this package builds {sorted(_MODELS)}")
     model = _MODELS[model_type](
         tuple(cfg.MODEL.TOPOLOGY), input_channels(cfg),
-        cfg.MODEL.OUT_CHANNELS, compute_dtype(cfg), generator=generator)
+        out_channels=cfg.MODEL.OUT_CHANNELS, compute_dtype=compute_dtype(cfg),
+        generator=generator, n_s1_bands=len(cfg.DATALOADER.S1_BANDS))
     return model.to(device)
 
 
 _MODELS = {
+    'unet': networks.UNet,
+    'dualstreamunet': networks.DualStreamUNet,
     'siameseunet': networks.SiameseUNet,
     'dtsiameseunet': networks.DualTaskSiameseUNet,
+    'whatevernet': networks.WhateverNet,
+    'whatevernet2': networks.WhateverNet2,
 }

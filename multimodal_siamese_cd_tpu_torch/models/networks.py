@@ -1,11 +1,27 @@
-"""Change-detection networks (PyTorch, NCHW): 'siameseunet' and
-'dtsiameseunet'.
+"""Change-detection networks (PyTorch, NCHW): every type of the reference
+factory (reference networks.py:12-27), each the counterpart of the JAX
+package's class of the same name.
 
-``SiameseUNet`` is the counterpart of the JAX package's ``SiameseUNet``
-(reference networks.py:123-154): a shared-weight stem and encoder applied to
-both dates, per-level feature differences ``f_t2 - f_t1``, one decoder and a
-1x1 head. ``DualTaskSiameseUNet`` (the JAX package's networks.py:149-200)
-adds a semantic decoder shared by both dates and an auxiliary head.
+  'unet'            ``UNet``: early fusion, concat(t1, t2) -> U-Net
+                    (the JAX package's networks.py:64-86)
+  'dualstreamunet'  ``DualStreamUNet``: one early-fusion U-Net per modality,
+                    a 1x1 head on both decoders' output (:89-120)
+  'siameseunet'     ``SiameseUNet``: a shared-weight stem and encoder on both
+                    dates, per-level differences ``f_t2 - f_t1``, one decoder
+                    and a 1x1 head (:123-146)
+  'dtsiameseunet'   ``DualTaskSiameseUNet``: adds a semantic decoder shared by
+                    both dates and an auxiliary head (:149-200)
+  'whatevernet'     ``WhateverNet``: one Siamese-difference U-Net per
+                    modality with its own head, plus a fusion head (:203-242)
+  'whatevernet2'    ``WhateverNet2``: as whatevernet, each stream early
+                    fusion (:245-281)
+
+The two-stream models split the channels of each date at ``n_s1_bands``
+(every constructor takes it, so the factory calls them all alike; the
+single-stream ones ignore it): stream 1 is S1 and stream 2 is S2, the order of
+:func:`..train_lib.split_stack`. Their top-level attribute names are the
+flax modules' (``inc_stream1``, ``encoder_stream1``, ..., ``outc_fusion``),
+so the reference ``state_dict`` grammar holds for every type.
 
 Fresh initialization is chosen on purpose to match the JAX package, not
 torch's defaults: every conv and transposed-conv kernel is drawn
@@ -68,7 +84,9 @@ class SiameseUNet(nn.Module):
     def __init__(self, topology: Sequence[int], in_channels: int,
                  out_channels: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 n_s1_bands: int | None = None):
+        del n_s1_bands                   # one stream: every band together
         super().__init__()
         self.compute_dtype = compute_dtype
         self.inc = InConv(in_channels, topology[0])
@@ -94,7 +112,9 @@ class DualTaskSiameseUNet(nn.Module):
     def __init__(self, topology: Sequence[int], in_channels: int,
                  out_channels: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 n_s1_bands: int | None = None):
+        del n_s1_bands                   # one stream: every band together
         super().__init__()
         self.compute_dtype = compute_dtype
         self.inc = InConv(in_channels, topology[0])
@@ -122,3 +142,119 @@ class DualTaskSiameseUNet(nn.Module):
         (assessment_semantics.py:117)."""
         return self.outc_sem_change(torch.cat([logits_sem_t1, logits_sem_t2],
                                               dim=1))
+
+
+class UNet(nn.Module):
+    """Early-fusion U-Net on ``concat(x_t1, x_t2)`` (reference
+    networks.py:59-79)."""
+
+    def __init__(self, topology: Sequence[int], in_channels: int,
+                 out_channels: int = 1,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None,
+                 n_s1_bands: int | None = None):
+        del n_s1_bands                   # one stream: every band together
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.inc = InConv(2 * in_channels, topology[0])
+        self.encoder = Encoder(topology)
+        self.decoder = Decoder(topology)
+        self.outc = OutConv(topology[0], out_channels)
+        lecun_normal_(self, generator)
+
+    def forward(self, x_t1: torch.Tensor, x_t2: torch.Tensor) -> torch.Tensor:
+        x = self.inc(torch.cat([x_t1, x_t2], dim=1))
+        return self.outc(self.decoder(self.encoder(x)))
+
+
+class _TwoStreams(nn.Module):
+    """The stems, encoders and decoders of the two modality streams, named
+    ``{inc,encoder,decoder}_stream{1,2}``. ``siamese`` streams run the stem
+    and encoder on each date and decode the feature differences; the others
+    run them once on ``concat(t1, t2)``. ``stream_heads`` adds a 1x1 head per
+    stream (``outc_stream{1,2}``)."""
+
+    def __init__(self, topology: Sequence[int], in_channels: int,
+                 n_s1_bands: int, out_channels: int, siamese: bool,
+                 stream_heads: bool):
+        super().__init__()
+        self.n_s1_bands = n_s1_bands
+        self.siamese = siamese
+        per_date = (n_s1_bands, in_channels - n_s1_bands)
+        for name, ch in zip(("stream1", "stream2"), per_date):
+            setattr(self, f"inc_{name}", InConv(ch if siamese else 2 * ch,
+                                                topology[0]))
+            setattr(self, f"encoder_{name}", Encoder(topology))
+            setattr(self, f"decoder_{name}", Decoder(topology))
+            if stream_heads:
+                setattr(self, f"outc_{name}", OutConv(topology[0], out_channels))
+
+    def _stream(self, name: str, a: torch.Tensor, b: torch.Tensor):
+        inc = getattr(self, f"inc_{name}")
+        enc = getattr(self, f"encoder_{name}")
+        if self.siamese:
+            # a's stem and encoder before b's: in train mode each call
+            # updates their BatchNorm running statistics, in flax's order
+            feats = _diff(enc(inc(a)), enc(inc(b)))
+        else:
+            feats = enc(inc(torch.cat([a, b], dim=1)))
+        return getattr(self, f"decoder_{name}")(feats)
+
+    def streams(self, x_t1: torch.Tensor, x_t2: torch.Tensor):
+        """Both streams' decoder outputs ``(d1, d2)``, stream 1 first."""
+        k = self.n_s1_bands
+        d1 = self._stream("stream1", x_t1[:, :k], x_t2[:, :k])
+        d2 = self._stream("stream2", x_t1[:, k:], x_t2[:, k:])
+        return d1, d2
+
+
+class DualStreamUNet(_TwoStreams):
+    """Late fusion of per-modality early-fusion U-Nets (reference
+    networks.py:82-120): the head ``outc`` on ``concat(d1, d2)``."""
+
+    def __init__(self, topology: Sequence[int], in_channels: int,
+                 n_s1_bands: int, out_channels: int = 1,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None):
+        super().__init__(topology, in_channels, n_s1_bands, out_channels,
+                         siamese=False, stream_heads=False)
+        self.compute_dtype = compute_dtype
+        self.outc = OutConv(2 * topology[0], out_channels)
+        lecun_normal_(self, generator)
+
+    def forward(self, x_t1: torch.Tensor, x_t2: torch.Tensor) -> torch.Tensor:
+        return self.outc(torch.cat(self.streams(x_t1, x_t2), dim=1))
+
+
+class WhateverNet(_TwoStreams):
+    """Per-modality Siamese-difference streams with their own heads and a
+    fusion head on ``concat(d1, d2)``: the semi-supervised consistency model
+    (reference networks.py:200-263). In train mode ``forward`` returns the
+    logits ``(fusion, stream1, stream2)``; in eval mode the fusion logits
+    alone, as the JAX package does with ``train=True/False``."""
+
+    _SIAMESE = True
+
+    def __init__(self, topology: Sequence[int], in_channels: int,
+                 n_s1_bands: int, out_channels: int = 1,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None):
+        super().__init__(topology, in_channels, n_s1_bands, out_channels,
+                         siamese=self._SIAMESE, stream_heads=True)
+        self.compute_dtype = compute_dtype
+        self.outc_fusion = OutConv(2 * topology[0], out_channels)
+        lecun_normal_(self, generator)
+
+    def forward(self, x_t1: torch.Tensor, x_t2: torch.Tensor):
+        d1, d2 = self.streams(x_t1, x_t2)
+        out_fusion = self.outc_fusion(torch.cat([d1, d2], dim=1))
+        if self.training:
+            return out_fusion, self.outc_stream1(d1), self.outc_stream2(d2)
+        return out_fusion
+
+
+class WhateverNet2(WhateverNet):
+    """Like :class:`WhateverNet`, each stream early fusion (concat t1, t2)
+    instead of a Siamese difference (reference networks.py:266-310)."""
+
+    _SIAMESE = False

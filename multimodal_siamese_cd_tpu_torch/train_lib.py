@@ -1,10 +1,9 @@
 """Training core and forward passes (the JAX package's ``train_lib.py``).
 
-The supervised and dual-task steps: the wire stack is cast to the compute
-dtype and augmented on the device, the model runs in train mode (bf16
-autocast on the card, fp32 params; fp32 on the CPU), the losses are taken on
-fp32 logits, and AdamW updates the parameters in place. The semi-supervised
-step comes with its slice.
+The supervised, semi-supervised and dual-task steps: the wire stack is cast
+to the compute dtype and augmented on the device, the model runs in train
+mode (bf16 autocast on the card, fp32 params; fp32 on the CPU), the losses
+are taken on fp32 logits, and AdamW updates the parameters in place.
 """
 
 from __future__ import annotations
@@ -106,13 +105,14 @@ def augment(stack: torch.Tensor, cfg, layout: dict, dtype: torch.dtype,
 
 
 def _make_step(model, optimizer, cfg, losses_of):
-    """One optimizer step around ``losses_of(outputs, y_change, y_sem_t1,
-    y_sem_t2) -> {"loss": ..., ...}`` (fp32 scalars; ``loss`` is the one
-    differentiated).
+    """One optimizer step around ``losses_of(outputs, is_labeled, y_change,
+    y_sem_t1, y_sem_t2) -> {"loss": ..., ...}`` (fp32 scalars; ``loss`` is
+    the one differentiated).
 
     Returns ``step(stack, is_labeled, global_step) -> metrics``: ``stack``
-    is the wire batch on the model's device, ``global_step`` the number of
-    steps taken before this one (with ``cfg.SEED`` it seeds the
+    is the wire batch on the model's device, ``is_labeled`` its float32
+    ``(B,)`` label mask there, ``global_step`` the number of steps taken
+    before this one (with ``cfg.SEED`` it seeds the
     augmentation). The step computes in the config's dtype on the card and
     in float32 on the CPU; the metrics are left on the device (no
     synchronisation).
@@ -131,14 +131,13 @@ def _make_step(model, optimizer, cfg, losses_of):
     dtype = compute_dtype(cfg) if device.type == "cuda" else torch.float32
 
     def step(stack: torch.Tensor, is_labeled, global_step: int) -> dict:
-        del is_labeled
         model.train()
         stack_aug = augment(stack, cfg, layout, dtype,
                             augment_generator(cfg.SEED, global_step, device))
         x_t1, x_t2, *labels = split_stack(stack_aug, layout)
         with autocast(dtype, device):
             outputs = model(x_t1, x_t2)
-        metrics = losses_of(outputs, *labels)
+        metrics = losses_of(outputs, is_labeled, *labels)
         optimizer.zero_grad(set_to_none=True)
         metrics["loss"].backward()
         for p in model.parameters():
@@ -157,7 +156,7 @@ def make_supervised_train_step(model, optimizer, cfg):
     :func:`_make_step` for the step's contract."""
     criterion = losses.get_criterion(cfg.MODEL.LOSS_TYPE)
 
-    def losses_of(logits, y_change, y_sem_t1, y_sem_t2) -> dict:
+    def losses_of(logits, is_labeled, y_change, y_sem_t1, y_sem_t2) -> dict:
         return {"loss": criterion(logits.float(), y_change)}
 
     return _make_step(model, optimizer, cfg, losses_of)
@@ -171,7 +170,7 @@ def make_dualtask_train_step(model, optimizer, cfg):
     for the step's contract."""
     criterion = losses.get_criterion(cfg.MODEL.LOSS_TYPE)
 
-    def losses_of(outputs, y_change, y_sem_t1, y_sem_t2) -> dict:
+    def losses_of(outputs, is_labeled, y_change, y_sem_t1, y_sem_t2) -> dict:
         logits_change, logits_sem_t1, logits_sem_t2 = (o.float() for o in outputs)
         change_loss = criterion(logits_change, y_change)
         sem_loss = (criterion(logits_sem_t1, y_sem_t1)
@@ -182,15 +181,71 @@ def make_dualtask_train_step(model, optimizer, cfg):
     return _make_step(model, optimizer, cfg, losses_of)
 
 
+def make_semisupervised_train_step(model, optimizer, cfg):
+    """Cross-modal consistency step (reference train_semisupervised.py:
+    66-118; the JAX package's ``make_semisupervised_train_step``), for a
+    three-head model: ``whatevernet``, ``whatevernet2``, or
+    ``dtsiameseunet`` with its change head as the fusion and its semantic
+    heads as the consistency pair.
+
+    ``sup = α·(fusion + stream1 + stream2)/3``, each term over the labeled
+    rows; ``cons = (1 - α)·consistency`` over the unlabeled rows, between
+    the two streams' probabilities for 'L2', else between stream 1's logits
+    and stream 2's probabilities (differentiated through both, as the JAX
+    package does); ``loss = has_lab·sup + has_unlab·cons``, where the
+    presence flags are maxima on the device, so the step never waits for
+    the host. Metrics: ``loss``, ``sup_loss``, ``cons_loss``,
+    ``fusion_loss``, ``stream1_loss``, ``stream2_loss`` (each 0 when its
+    partition is absent), ``n_labeled``, ``n_notlabeled``; see
+    :func:`_make_step` for the step's contract."""
+    if cfg.MODEL.TYPE not in ("whatevernet", "whatevernet2", "dtsiameseunet"):
+        raise ValueError(
+            f"semisupervised training needs a 3-head model "
+            f"(whatevernet/whatevernet2/dtsiameseunet), got "
+            f"MODEL.TYPE={cfg.MODEL.TYPE!r}")
+    sup_criterion = losses.get_criterion(cfg.MODEL.LOSS_TYPE)
+    cons_criterion = losses.get_criterion(cfg.CONSISTENCY_TRAINER.LOSS_TYPE)
+    cons_is_l2 = cfg.CONSISTENCY_TRAINER.LOSS_TYPE == "L2"
+    alpha = float(cfg.CONSISTENCY_TRAINER.LOSS_FACTOR)
+
+    def losses_of(outputs, is_labeled, y_change, y_sem_t1, y_sem_t2) -> dict:
+        logits_fusion, logits_s1, logits_s2 = (o.float() for o in outputs)
+        lab = is_labeled.to(device=logits_fusion.device, dtype=torch.float32)
+        unlab = 1.0 - lab
+        has_lab, has_unlab = lab.max(), unlab.max()
+        probs_s2 = torch.sigmoid(logits_s2)
+
+        fusion_loss = sup_criterion(logits_fusion, y_change, mask=lab)
+        stream1_loss = sup_criterion(logits_s1, y_change, mask=lab)
+        stream2_loss = sup_criterion(logits_s2, y_change, mask=lab)
+        sup_loss = alpha * (fusion_loss + stream1_loss + stream2_loss) / 3.0
+        first = torch.sigmoid(logits_s1) if cons_is_l2 else logits_s1
+        cons_loss = (1.0 - alpha) * cons_criterion(first, probs_s2, mask=unlab)
+        return {
+            "loss": has_lab * sup_loss + has_unlab * cons_loss,
+            "sup_loss": has_lab * sup_loss,
+            "cons_loss": has_unlab * cons_loss,
+            "fusion_loss": has_lab * fusion_loss,
+            "stream1_loss": has_lab * stream1_loss,
+            "stream2_loss": has_lab * stream2_loss,
+            "n_labeled": lab.sum(),
+            "n_notlabeled": unlab.sum(),
+        }
+
+    return _make_step(model, optimizer, cfg, losses_of)
+
+
 _STEPS = {"supervised": make_supervised_train_step,
+          "semisupervised": make_semisupervised_train_step,
           "dualtask": make_dualtask_train_step}
 
 
 def make_train_step(model, optimizer, cfg, regime: str):
-    """The step of ``regime``: 'supervised' or 'dualtask'."""
+    """The step of ``regime``: 'supervised', 'semisupervised' or
+    'dualtask'."""
     if regime not in _STEPS:
-        raise ValueError(f"unknown or unported training regime {regime!r}; "
-                         f"ported: {sorted(_STEPS)}")
+        raise ValueError(f"unknown training regime {regime!r}; "
+                         f"known: {sorted(_STEPS)}")
     return _STEPS[regime](model, optimizer, cfg)
 
 

@@ -22,7 +22,8 @@ def main(argv=None) -> None:
 
 def run_cli(regime: str, argv=None) -> None:
     """Parse the training CLI's arguments and train ``cfg`` in ``regime``
-    (shared by the supervised and dual-task entry scripts)."""
+    (shared by the supervised, semi-supervised and dual-task entry
+    scripts)."""
     args = parsers.training_argument_parser().parse_known_args(argv)[0]
     cfg = experiment_manager.setup_cfg(args)
 

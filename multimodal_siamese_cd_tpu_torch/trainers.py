@@ -1,5 +1,5 @@
-"""Training loop (the JAX package's ``trainers.py``), supervised and
-dual-task regimes.
+"""Training loop (the JAX package's ``trainers.py``): the supervised,
+semi-supervised and dual-task regimes.
 
 ``run_training(cfg, regime)`` reproduces the reference entry points'
 control flow (train_supervised.py:17-116; the dual-task script's intended
@@ -10,8 +10,9 @@ the checkpoint epochs. Per-regime differences live in ``_REGIMES``.
 
 The hot loop: threaded host loader (crop-only wire stacks) -> pinned,
 non-blocking copies on a side stream -> one step (augment + forward +
-backward + AdamW) on the card. Loss scalars stay on the card until a log
-window closes. The semi-supervised regime comes in a later slice.
+backward + AdamW) on the card. Loss scalars (and, semi-supervised, each
+batch's labeled and unlabeled counts) stay on the card until a log window
+closes, then come back in one host fetch.
 """
 
 from __future__ import annotations
@@ -81,37 +82,80 @@ def _loader(cfg) -> TrainLoader:
 
 # Per-regime differences of the otherwise identical loop (the JAX package's
 # trainers.py:352-371):
-#   keys            — device metric scalars accumulated per log window; the
-#                     window's payload is their means and
+#   keys            — device metric scalars accumulated per log window
+#   track_labels    — also collect each batch's (n_labeled, n_notlabeled);
+#                     the window is then reduced by _semisup_window_means,
+#                     else its payload is the keys' means and
 #                     labeled_percentage 100 (every sample labeled)
 #   debug_test_eval — the DEBUG short-circuit runs a test eval first
-#                     (train_supervised.py:84-86)
+#                     (train_supervised.py:84-86; the semi-supervised one
+#                     just breaks, train_semisupervised.py:123-124)
 #   ckpt_in_debug   — checkpoints are also written in DEBUG runs
+#                     (train_semisupervised.py:161-163)
 _REGIMES = {
-    'supervised': dict(keys=('loss',), debug_test_eval=True,
-                       ckpt_in_debug=False),
+    'supervised': dict(keys=('loss',), track_labels=False,
+                       debug_test_eval=True, ckpt_in_debug=False),
+    'semisupervised': dict(keys=('fusion_loss', 'stream1_loss', 'stream2_loss',
+                                 'loss', 'sup_loss', 'cons_loss'),
+                           track_labels=True, debug_test_eval=False,
+                           ckpt_in_debug=True),
     'dualtask': dict(keys=('loss', 'sem_loss', 'change_loss'),
-                     debug_test_eval=True, ckpt_in_debug=False),
+                     track_labels=False, debug_test_eval=True,
+                     ckpt_in_debug=False),
 }
 
 
-def _window_summary(sets: dict) -> dict:
-    """Reduce a log window's device scalars (one stack, one host fetch) to
-    the regime's wandb payload (metric names as the reference's)."""
+def _semisup_window_means(sets: dict, label_counts: list) -> dict:
+    """Reduce a semi-supervised window with the reference's protocol
+    (train_semisupervised.py:85-106; the JAX package's trainers.py:315-349):
+    the supervised losses average over the batches that had labeled rows,
+    the consistency loss over those that had unlabeled rows (the step
+    writes 0 for an absent partition, which must not drag the means toward
+    0), ``loss`` over every batch; ``labeled_percentage`` from the counts.
+    ``label_counts`` rows are ``(n_labeled, n_notlabeled)``."""
+    counts = np.asarray(label_counts, np.float64).reshape(-1, 2)
+    w_lab, w_unl = (counts > 0).T.astype(np.float64)
+
+    def weighted_mean(key, w):
+        return float((np.asarray(sets[key], np.float64) * w).sum() / w.sum()) \
+            if w.sum() > 0 else 0.0
+
+    total = counts.sum()
+    return {
+        'fusion_loss': weighted_mean('fusion_loss', w_lab),
+        'stream1_loss': weighted_mean('stream1_loss', w_lab),
+        'stream2_loss': weighted_mean('stream2_loss', w_lab),
+        'sup_loss': weighted_mean('sup_loss', w_lab),
+        'cons_loss': weighted_mean('cons_loss', w_unl),
+        'loss': float(np.mean(sets['loss'])) if sets['loss'] else 0.0,
+        'labeled_percentage': float(counts[:, 0].sum()) / max(total, 1.0) * 100,
+    }
+
+
+def _window_summary(sets: dict, label_counts: list,
+                    track_labels: bool) -> dict:
+    """Reduce a log window's device scalars and label counts (one stack, one
+    host fetch) to the regime's wandb payload (metric names as the
+    reference's); ``track_labels`` is the regime's flag."""
     flat = [v for values in sets.values() for v in values]
+    flat += [c for row in label_counts for c in row]
     fetched = torch.stack(flat).cpu().tolist() if flat else []
     out, i = {}, 0
     for key, values in sets.items():
-        chunk = fetched[i:i + len(values)]
-        out[key] = float(np.mean(chunk)) if chunk else 0.0
+        out[key] = fetched[i:i + len(values)]
         i += len(values)
+    if track_labels:
+        rows = [fetched[j:j + 2] for j in range(i, len(fetched), 2)]
+        return _semisup_window_means(out, rows)
+    out = {k: float(np.mean(v)) if v else 0.0 for k, v in out.items()}
     out['labeled_percentage'] = 100
     return out
 
 
 def run_training(cfg, regime: str, device=None) -> None:
-    """Train ``cfg`` in ``regime`` ('supervised' or 'dualtask'; another
-    raises ``ValueError``); ``device`` defaults to the card."""
+    """Train ``cfg`` in ``regime`` ('supervised', 'semisupervised' or
+    'dualtask'; another raises ``ValueError``); ``device`` defaults to the
+    card."""
     device = resolve_device(device)
     print_run_config(cfg, str(device))
     raw = cfg.TRAINER.get('STEPS_PER_EXECUTION', None)
@@ -157,11 +201,14 @@ def _run_epochs(cfg, spec, model, optimizer, step_fn, loader, steps_per_epoch,
         print(f'Starting epoch {epoch}/{epochs}.')
         start = timeit.default_timer()
         sets: dict[str, list] = {k: [] for k in spec['keys']}
+        label_counts: list = []
 
         for batch in prefetch_to_device(loader, device):
             m = step_fn(batch['stack'], batch['is_labeled'], global_step)
             for k in sets:
                 sets[k].append(m[k])
+            if spec['track_labels']:
+                label_counts.append((m['n_labeled'], m['n_notlabeled']))
             global_step += 1
             epoch_float = global_step / steps_per_epoch
 
@@ -179,7 +226,8 @@ def _run_epochs(cfg, spec, model, optimizer, step_fn, loader, steps_per_epoch,
                 eval_time = timeit.default_timer() - eval_start
                 time = timeit.default_timer() - start
                 wandb_compat.log({
-                    **_window_summary(sets),
+                    **_window_summary(sets, label_counts,
+                                     spec['track_labels']),
                     'time': time,
                     # the window's time less its two evals: the LOG_FREQ
                     # training steps alone
@@ -189,6 +237,7 @@ def _run_epochs(cfg, spec, model, optimizer, step_fn, loader, steps_per_epoch,
                 })
                 start = timeit.default_timer()
                 sets = {k: [] for k in sets}
+                label_counts = []
 
         if not cfg.DEBUG and start_step % steps_per_epoch == 0:
             assert epoch == epoch_float

@@ -28,6 +28,8 @@ PORT_MODULES = [
     "experiment_manager", "trainers", "train_supervised",
     # slice 3: dual-task training and assessment, the conv3x3 op
     "train_supervised_dualtask", "ops.conv3x3",
+    # slice 5: semi-supervised training
+    "train_semisupervised",
 ]
 
 

@@ -343,12 +343,24 @@ def test_torch_adamw_alone_skips_the_unused_head(step_setup):
 
 
 def test_unported_regime_is_refused(step_setup):
+    """An unknown regime name is refused, by the step and by the trainer;
+    a single-head model under 'semisupervised' raises the JAX package's
+    ValueError."""
     model = create_network(step_setup.tcfg, device="cpu")
     optimizer = train_lib.make_optimizer(model, step_setup.tcfg)
-    with pytest.raises(ValueError, match="semisupervised"):
-        train_lib.make_train_step(model, optimizer, step_setup.tcfg, "semisupervised")
-    with pytest.raises(ValueError, match="semisupervised"):
-        trainers.run_training(step_setup.tcfg, "semisupervised", device="cpu")
+    with pytest.raises(ValueError, match="no_such_regime"):
+        train_lib.make_train_step(model, optimizer, step_setup.tcfg, "no_such_regime")
+    with pytest.raises(ValueError, match="no_such_regime"):
+        trainers.run_training(step_setup.tcfg, "no_such_regime", device="cpu")
+    jcfg, tcfg = step_setup.jcfg.clone(), step_setup.tcfg.clone()
+    jcfg.MODEL.TYPE = tcfg.MODEL.TYPE = "siameseunet"
+    with pytest.raises(ValueError) as want:
+        jax_train_lib.make_semisupervised_train_step(None, jcfg, jit=False)
+    model = create_network(tcfg, device="cpu")
+    with pytest.raises(ValueError) as got:
+        train_lib.make_train_step(model, train_lib.make_optimizer(model, tcfg), tcfg,
+                                  "semisupervised")
+    assert str(got.value) == str(want.value)
 
 
 # --- the CLI and its checkpoint ---------------------------------------------------

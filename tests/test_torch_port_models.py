@@ -154,6 +154,6 @@ def test_factory_contract():
     assert next(model.parameters()).dtype == torch.float32
     assert blocks.encoder_widths([64, 128, 256, 512]) == [128, 256, 512, 512]
     assert blocks.decoder_up_topology([64, 128, 256, 512]) == [64, 128, 256, 512, 512]
-    cfg.MODEL.TYPE = "unet"
-    with pytest.raises(NotImplementedError, match="unet"):
+    cfg.MODEL.TYPE = "siamunet_diff"
+    with pytest.raises(NotImplementedError, match="siamunet_diff"):
         factory.create_network(cfg, device="cpu")
