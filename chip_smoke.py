@@ -64,7 +64,22 @@ script exits non-zero:
      (each term 0 where its partition is absent), a timed and profiled
      step; then one staged step each of whatevernet2 and dtsiameseunet
      (semi-supervised) and unet and dualstreamunet (supervised), each with
-     its bn_stats launches counted.
+     its bn_stats launches counted;
+  8. a. ``siamunet_diff`` (FC-Siam-diff, fixed widths 16..128, spatial
+     dropout) trained supervised at batch 8 over the same split
+     (``trainers.run_training``, 24 steps, 58 bn_stats launches a step at
+     channels 16-128), the run's own kernel launches held against the plain
+     versions as in phase 7, its checkpoint reloaded, ``inference_loop``
+     over the 20 scenes, a timed and profiled step, and ``bn_stats`` timed
+     at the model's BatchNorm shapes beside the bound;
+     b. the offline CLIs in process through each module's ``main``:
+     ``assessment_change`` on phase 5's checkpoint (its printed line equal
+     to ``inference_loop``'s on that checkpoint), ``assessment_semantics``
+     on phase 6's (its three blocks equal to the pooled strict counts of
+     that checkpoint, its strict launches counted), the colored zoom
+     comparison over 3 AOIs, ``sanity_check`` for 2 samples, and
+     ``preprocessing`` on a hard-linked copy of the split (its
+     metadata.json equal to the split's).
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports only the port,
@@ -74,7 +89,9 @@ torch, numpy and the standard library.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -88,7 +105,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multimodal_siamese_cd_tpu_torch import (checkpoints, evaluation, metrics,
+from multimodal_siamese_cd_tpu_torch import (assessment_change, assessment_semantics,
+                                             checkpoints, evaluation, geofiles,
+                                             metrics, png, preprocessing,
+                                             qualitative_comparison, sanity_check,
                                              train_lib, trainers, wandb_compat)
 from multimodal_siamese_cd_tpu_torch.config import load_cfg
 from multimodal_siamese_cd_tpu_torch.data.dataset import MultimodalCDDataset
@@ -126,6 +146,15 @@ TRAIN_AOIS, TRAIN_MULTIPLIER, TRAIN_LOG_FREQ = 8, 48, 12
 # (8 + 4) x 16 = 192 crops = 48 steps of 4 at batch 4
 UNLABELED_AOIS = [f"smoke_unlabeled_{i}" for i in range(4)]
 SEMISUP_MULTIPLIER = 16
+# siamunet_diff: 8 AOIs x 24 = 192 crops = 24 steps of 8, four LOG_FREQ
+# windows of 6; its BatchNorm inputs at batch 8 and 256^2 crops (encoder
+# 16@256, 32@128, 64@64, 128@32; decoder 128@32, 64@32, 64@64, 32@64,
+# 32@128, 16@128, 16@256)
+DIFF_MULTIPLIER, DIFF_LOG_FREQ = 24, 6
+DIFF_BN_SHAPES = [(8, 16, 256, 256), (8, 32, 128, 128), (8, 64, 64, 64),
+                  (8, 128, 32, 32), (8, 64, 32, 32), (8, 32, 64, 64),
+                  (8, 16, 128, 128)]
+DIFF_BN_PER_STEP = 2 * (2 * 10 + 9)     # 10 encoder BNs per date, 9 decoder
 # conv3x3 (B, H, W, Cin, Cout): the JAX test's shape, the Pallas tool's own
 # (Cin padded to 128), every U-Net level at batch 8 and 256^2 crops, and a
 # ragged one; the U-Net's top level is the row's headline shape
@@ -1220,8 +1249,30 @@ def _watch(module, name: str, keep):
         setattr(module, name, wrapper)
 
 
+def _keepers() -> tuple:
+    """Host copies of a path's kernel inputs and outputs, to hold them
+    against the plain versions once the counts are read: bn_stats at the
+    first launch of each signature (the first step), every confusion
+    launch. Returns (bn_seen, conf_calls, keep_bn, keep_conf) for
+    :func:`_watch` and :func:`_check_path_launches`."""
+    bn_seen, conf_calls = {}, []
+
+    def keep_bn(args, out):
+        a, b = args
+        key = (tuple(a.shape), a.dtype, a is b)
+        if key not in bn_seen:
+            bn_seen[key] = (a.detach().cpu(),
+                            None if a is b else b.detach().cpu(),
+                            tuple(o.detach().cpu() for o in out))
+
+    def keep_conf(args, out):
+        conf_calls.append((tuple(t.detach().cpu() for t in args), out.cpu()))
+
+    return bn_seen, conf_calls, keep_bn, keep_conf
+
+
 def _check_path_launches(rows: dict, dev: torch.device, bn_seen: dict,
-                         conf_calls: list) -> None:
+                         conf_calls: list, path: str = "semi-supervised") -> None:
     """The path's own kernel outputs against the plain versions on the same
     inputs: bn_stats at the first launch of every (shape, dtype, a is b)
     the run gave it (float64 plain, the limit of phase 3b, and a relaunch
@@ -1237,7 +1288,7 @@ def _check_path_launches(rows: dict, dev: torch.device, bn_seen: dict,
         log(f"  bn_stats path launch {shape} {str(dtype)[6:]} a is b {same}: "
             f"error / limit {ratio:.4f}, relaunch bit-equal {bitwise}")
         if ratio > 1.0 or not bitwise:
-            raise AssertionError(f"bn_stats on the semi-supervised path's input "
+            raise AssertionError(f"bn_stats on the {path} path's input "
                                  f"{shape} {dtype} same={same}: error ratio "
                                  f"{ratio:.3g} (limit 1), bit-equal {bitwise}")
     rows["bn_stats"]["max_abs_err"] = max(rows["bn_stats"]["max_abs_err"], err)
@@ -1254,8 +1305,8 @@ def _check_path_launches(rows: dict, dev: torch.device, bn_seen: dict,
         f"plain| {conf_err} on {sum(int(a[0].numel()) for a, _ in conf_calls)} "
         f"probabilities")
     if not bn_seen or not conf_calls or conf_err != 0:
-        raise AssertionError("the semi-supervised path's confusion counts != "
-                             "plain, or no launch was kept")
+        raise AssertionError(f"the {path} path's confusion counts != plain, "
+                             f"or no launch was kept")
 
 
 def phase_semisup(card: dict, rows: dict, dev: torch.device, root: Path,
@@ -1271,22 +1322,7 @@ def phase_semisup(card: dict, rows: dict, dev: torch.device, root: Path,
         f"{cfg.TRAINER.get('PRECISION', 'bf16')}, loss {cfg.MODEL.LOSS_TYPE}, "
         f"consistency {cfg.CONSISTENCY_TRAINER.LOSS_TYPE} alpha "
         f"{cfg.CONSISTENCY_TRAINER.LOSS_FACTOR}, LOG_FREQ {cfg.LOG_FREQ}")
-    # host copies of the path's kernel inputs and outputs, to hold them
-    # against the plain versions once the counts are read: bn_stats at the
-    # first launch of each signature (the first step), every confusion launch
-    bn_seen, conf_calls = {}, []
-
-    def keep_bn(args, out):
-        a, b = args
-        key = (tuple(a.shape), a.dtype, a is b)
-        if key not in bn_seen:
-            bn_seen[key] = (a.detach().cpu(),
-                            None if a is b else b.detach().cpu(),
-                            tuple(o.detach().cpu() for o in out))
-
-    def keep_conf(args, out):
-        conf_calls.append((tuple(t.detach().cpu() for t in args), out.cpu()))
-
+    bn_seen, conf_calls, keep_bn, keep_conf = _keepers()
     wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl", out_dir=out)
     try:
         with _watch(batchnorm, "bn_stats", keep_bn), \
@@ -1432,6 +1468,288 @@ def phase_semisup(card: dict, rows: dict, dev: torch.device, root: Path,
                                             2 * expect_bn))
 
 
+# -- phase 8 ------------------------------------------------------------------
+
+def _bn_times(card: dict, shapes: list) -> None:
+    """``bn_stats`` per launch at each of ``shapes`` in bf16, backward
+    ``(dy, x)`` and forward ``(x, x)``: the device time from CUDA graphs of
+    20 launches replayed in turns (backward, forward, forward, backward),
+    beside the bound (bytes: each input read once, two (C,) float32 sums
+    written; operations: 3 per element at the float32 rate), and the
+    wrapper's time per call back to back on CUDA events, which the host's
+    launch cost sets where it exceeds the kernel's."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bw, flops, _ = peaks(card["name"])
+    for shape in shapes:
+        dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        c = shape[1]
+        s1 = torch.empty(c, device="cuda")
+        s2 = torch.empty(c, device="cuda")
+        chunks = -(-shape[0] * shape[2] * shape[3] // bn_stats.CHUNK)
+        partial = torch.empty(c * chunks * 2, device="cuda")
+        got = graph_time_ms(
+            {"backward": lambda: bn_stats.launch(dy, x, s1, s2, partial),
+             "forward": lambda: bn_stats.launch(x, x, s1, s2, partial)},
+            ["backward", "forward", "forward", "backward"], inner=20, rounds=5)
+        wrapper = cuda_time_ms(lambda: bn_stats.bn_stats(dy, x), runs=15, inner=20)
+        ops_ms = 3 * x.numel() / flops * 1e3
+        back_bound = max((2 * x.numel() * 2 + 2 * c * 4) / bw * 1e3, ops_ms)
+        fwd_bound = max((x.numel() * 2 + 2 * c * 4) / bw * 1e3, ops_ms)
+        back, fwd = got["backward"], got["forward"]
+        log(f"  bn_stats at {shape} bf16, {chunks} x {c} blocks: backward "
+            f"{back * 1e3:.2f} us (bound {back_bound * 1e3:.2f} us, "
+            f"{back_bound / back * 100:.1f}%), forward {fwd * 1e3:.2f} us (bound "
+            f"{fwd_bound * 1e3:.2f} us, {fwd_bound / fwd * 100:.1f}%); the wrapper "
+            f"back to back {wrapper * 1e3:.2f} us per call")
+        del dy, x
+
+
+def phase_siamunet_diff(card: dict, rows: dict, dev: torch.device, root: Path,
+                        aois: list) -> None:
+    out = root / "diff_out"
+    out.mkdir()
+    cfg = _train_cfg(root, out, aois)
+    cfg.MODEL.TYPE = "siamunet_diff"
+    cfg.DATALOADER.TRAINING_MULTIPLIER = DIFF_MULTIPLIER
+    cfg.LOG_FREQ = DIFF_LOG_FREQ
+    a = cfg.AUGMENTATION
+    log(f"siamunet_diff training: FC-Siam-diff (widths 16/32/64/128, dropout "
+        f"0.2), batch {cfg.TRAINER.BATCH_SIZE}, {a.CROP_SIZE}^2 "
+        f"{a.IMAGE_OVERSAMPLING_TYPE} crops, flip {a.RANDOM_FLIP}, rotate "
+        f"{a.RANDOM_ROTATE}, precision {cfg.TRAINER.get('PRECISION', 'bf16')}, "
+        f"loss {cfg.MODEL.LOSS_TYPE}, {TRAIN_AOIS} AOIs x {DIFF_MULTIPLIER}, "
+        f"LOG_FREQ {cfg.LOG_FREQ}")
+    bn_seen, conf_calls, keep_bn, keep_conf = _keepers()
+    wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl", out_dir=out)
+    try:
+        with _watch(batchnorm, "bn_stats", keep_bn), \
+                _watch(evaluation, "confusion_counts", keep_conf):
+            # ---- the siamunet_diff path, with the launch counts around it --
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            trainers.run_training(cfg, "supervised", device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            bn_launches, conf_launches, _ = _counts()
+            # ------------------------------------------------------------------
+        peak_run = torch.cuda.max_memory_allocated()
+    finally:
+        wandb_compat.finish()
+    records = _records(out, cfg.NAME)
+    windows = [r for r in records if "train_time" in r]
+    steps = windows[-1]["step"] if windows else 0
+    log(f"run_training siamunet_diff: {steps} steps in {wall:.1f} s wall (with "
+        f"its evals); launches bn_stats {bn_launches} ({bn_launches / max(steps, 1):.1f} "
+        f"per step, expected {DIFF_BN_PER_STEP}), confusion {conf_launches}; peak "
+        f"device memory {peak_run / 2**30:.2f} GiB")
+    expect_steps = TRAIN_AOIS * DIFF_MULTIPLIER // cfg.TRAINER.BATCH_SIZE
+    if bn_launches != DIFF_BN_PER_STEP * steps or steps != expect_steps:
+        raise AssertionError(f"bn_stats launched {bn_launches} times in {steps} "
+                             f"steps, expected {DIFF_BN_PER_STEP} per step over "
+                             f"{expect_steps}")
+    if conf_launches < 1:
+        raise AssertionError("model_evaluation never launched the confusion kernel")
+    shapes = {key[0] for key in bn_seen}
+    if shapes != set(DIFF_BN_SHAPES):
+        raise AssertionError(f"siamunet_diff's BatchNorm shapes {sorted(shapes)}")
+    _check_path_launches(rows, dev, bn_seen, conf_calls, "siamunet_diff")
+    del bn_seen, conf_calls
+    patches = []
+    for r in windows:
+        rate = cfg.LOG_FREQ * cfg.TRAINER.BATCH_SIZE / r["train_time"]
+        patches.append(rate)
+        log(f"  window to step {r['step']}: loss {r['loss']:.6f}, {rate:.2f} "
+            f"patches/s, window time {r['time']:.3f} s")
+        if not np.isfinite(r["loss"]):
+            raise AssertionError(f"non-finite siamunet_diff loss at step {r['step']}")
+    if len(patches) != 4:
+        raise AssertionError(f"expected 4 log windows, got {len(patches)}")
+    log(f"siamunet_diff training throughput (host clock, batch "
+        f"{cfg.TRAINER.BATCH_SIZE} x {a.CROP_SIZE}^2, {card['smi']}): "
+        f"{statistics.median(patches[1:]):.2f} patches/s, median of windows 2-4 "
+        f"(window 1 is warm-up: {patches[0]:.2f})")
+    evals = [r for r in records if "test F1" in r]
+    log(f"  in-training evaluation: test F1 {evals[-1]['test F1']:.6f} at step "
+        f"{evals[-1]['step']}")
+
+    # the checkpoint reloads through load_checkpoint; parameters moved
+    ckpt = checkpoints.checkpoint_file(cfg, 1)
+    model, optimizer, step = checkpoints.load_checkpoint(1, cfg, device=dev)
+    init = create_network(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(cfg.SEED))
+    with torch.no_grad():
+        moved = [float((p - q).abs().max()) for p, q in
+                 zip(model.parameters(), init.parameters())]
+        finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    log(f"checkpoint {ckpt.name} ({ckpt.stat().st_size / 2**20:.2f} MiB) at step "
+        f"{step}: {type(model).__name__}, {sum(m > 0 for m in moved)} of "
+        f"{len(moved)} parameter tensors changed (max |dw| {max(moved):.3e}), all "
+        f"finite {finite}")
+    if (type(model).__name__ != "SiamUnetDiff" or step != steps or not finite
+            or sum(m > 0 for m in moved) < len(moved) // 2):
+        raise AssertionError("siamunet_diff checkpoint: wrong model or step, "
+                             "parameters unchanged or not finite")
+    del init
+
+    # inference over the 20 scenes with the checkpoint
+    cfg.DATASET.TEST_IDS = aois
+    ds = MultimodalCDDataset(cfg, "test", no_augmentations=True,
+                             dataset_mode="first_last", disable_multiplier=True,
+                             disable_unlabeled=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    f1, precision, recall = evaluation.inference_loop(model, ds, device=dev)["change"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = confusion.confusion_counts.launches
+    log(f"inference_loop siamunet_diff: {len(ds)} scenes in {wall:.3f} s = "
+        f"{len(ds) / wall:.2f} scenes/s (first pass), confusion launches "
+        f"{launches}; F1 {f1:.6f}, precision {precision:.6f}, recall {recall:.6f}")
+    if launches < 1 or not all(np.isfinite([f1, precision, recall])):
+        raise AssertionError("siamunet_diff inference: no launch or non-finite")
+
+    # one step alone: device time, peak, 58 launches, a profile
+    step_fn = train_lib.make_supervised_train_step(model, optimizer, cfg)
+    loader = TrainLoader(MultimodalCDDataset(cfg, "training"),
+                         cfg.TRAINER.BATCH_SIZE, num_workers=0, seed=1)
+    batch = next(prefetch_to_device(loader, dev))
+    for _ in range(2):
+        step_fn(batch["stack"], batch["is_labeled"], step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    step_ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"],
+                                           step), runs=5, warmup=0)
+    per_step = bn_stats.bn_stats.launches / 5
+    log(f"one siamunet_diff step on a staged batch (CUDA events, median of 5): "
+        f"{step_ms:.1f} ms = {cfg.TRAINER.BATCH_SIZE / step_ms * 1e3:.2f} "
+        f"patches/s of device time; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; bn_stats launches "
+        f"per step {per_step:g}")
+    if per_step != DIFF_BN_PER_STEP:
+        raise AssertionError(f"{per_step} bn_stats launches per siamunet_diff step")
+    profile_breakdown("one siamunet_diff step",
+                      lambda: step_fn(batch["stack"], batch["is_labeled"], step),
+                      top=12, match="bn_stats")
+    del model, optimizer, step_fn, batch
+    torch.cuda.empty_cache()
+    log(f"bn_stats per launch at siamunet_diff's BatchNorm shapes on {card['smi']} "
+        f"(CUDA graphs of 20 launches, median of 5 rounds; the wrapper: median "
+        f"of 15 x 20 calls):")
+    _bn_times(card, DIFF_BN_SHAPES)
+
+
+def _split_opts(aois: list, test_ids: list) -> list:
+    """``KEY VALUE`` overrides pointing a shipped config at the smoke split
+    and at the phases' checkpoints (epoch 1)."""
+    return ["DATASET.TRAINING_IDS", repr(aois[:TRAIN_AOIS]),
+            "DATASET.VALIDATION_IDS", repr(aois[TRAIN_AOIS:TRAIN_AOIS + 2]),
+            "DATASET.TEST_IDS", repr(test_ids), "INFERENCE_CHECKPOINT", "1"]
+
+
+def _run_cli(label: str, main, *args, **kw):
+    """Call a CLI's ``main`` in process; its stdout is kept and echoed."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main(*args, **kw)
+    seconds = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"  [{label}] {line}")
+    return buf.getvalue(), result, seconds
+
+
+def phase_clis(dev: torch.device, root: Path, aois: list) -> None:
+    """The offline CLIs through their ``main``, on phases 5 and 6's
+    checkpoints and the smoke split."""
+    device = ["--device", dev.type]
+    t_start = time.perf_counter()
+    base = ["-d", str(root), "-r", "test"]
+
+    # assessment_change on phase 5's siamese checkpoint == inference_loop's
+    train_out = root / "train_out"
+    text, _, sec = _run_cli("assessment_change", assessment_change.main,
+                            ["-c", "siamese", "-o", str(train_out)] + base + device
+                            + _split_opts(aois, aois))
+    cfg = _train_cfg(root, train_out, aois)
+    cfg.DATASET.TEST_IDS = aois
+    model, _, _ = checkpoints.load_checkpoint(1, cfg, device=dev)
+    ds = MultimodalCDDataset(cfg, "test", no_augmentations=True,
+                             dataset_mode="first_last", disable_multiplier=True,
+                             disable_unlabeled=True)
+    f1, p, r = evaluation.inference_loop(model, ds, device=dev)["change"]
+    want = f"F1 score: {f1:.3f} - Precision: {p:.3f} - Recall {r:.3f}"
+    log(f"assessment_change ({sec:.2f} s): printed == inference_loop's line on "
+        f"the checkpoint ({want}): {want in text.splitlines()}")
+    if want not in text.splitlines():
+        raise AssertionError("assessment_change printed another line than "
+                             "inference_loop's")
+    del model
+
+    # assessment_semantics on phase 6's dtsiamese checkpoint == the pooled
+    # strict counts of that checkpoint
+    dual_out = root / "dualtask_out"
+    _reset_counts()
+    text, _, sec = _run_cli("assessment_semantics", assessment_semantics.main,
+                            ["-c", "dtsiamese", "-o", str(dual_out)] + base + device
+                            + _split_opts(aois, aois))
+    _, _, strict_cli = _counts()
+    cfg = _train_cfg(root, dual_out, aois, "dtsiamese")
+    cfg.DATASET.TEST_IDS = aois
+    model, _, _ = checkpoints.load_checkpoint(1, cfg, device=dev)
+    ds = MultimodalCDDataset(cfg, "test", no_augmentations=True,
+                             dataset_mode="first_last", disable_multiplier=True,
+                             disable_unlabeled=True)
+    counts = evaluation.dualtask_quantitative_counts(model, ds, device=dev)
+    want = []
+    for title, key in (("Change", "change"), ("Change Sem", "change_sem"),
+                       ("Sem", "sem")):
+        f1, p, r = metrics.prob_metrics_from_counts(*counts[key])
+        want += [f"--{title}--",
+                 f"F1 score: {f1:.3f} - Precision: {p:.3f} - Recall {r:.3f}"]
+    got = [line for line in text.splitlines() if line.startswith(("--", "F1"))]
+    log(f"assessment_semantics ({sec:.2f} s): strict launches {strict_cli}; the "
+        f"three blocks == prob_metrics_from_counts over the checkpoint's pooled "
+        f"counts: {got == want}")
+    if got != want or strict_cli < 1:
+        raise AssertionError(f"assessment_semantics printed {got}, expected {want}")
+    del model
+
+    # the colored zoom comparison over 3 of the split's AOIs
+    _, figure, sec = _run_cli(
+        "qualitative_comparison", qualitative_comparison.main,
+        ["-c", "siamese", "-o", str(train_out), "-d", str(root)] + device
+        + _split_opts(aois, aois[:3]),
+        aoi_ids=aois[:3], zooms=[(100, 200, 300), (0, 0, 256), (500, 400, None)])
+    log(f"qualitative_comparison ({sec:.2f} s): {figure} ({figure.stat().st_size} "
+        f"bytes, {png.read_png(figure).shape} px)")
+
+    # sanity_check: 2 augmented training samples
+    out = root / "cli_out"
+    _, files, sec = _run_cli("sanity_check", sanity_check.main,
+                             ["-c", "siamese", "-d", str(root), "-n", "2", "-o",
+                              str(out / "sanity")] + _split_opts(aois, aois))
+    log(f"sanity_check ({sec:.2f} s): {[str(f) for f in files]}")
+    if len(files) != 2 or not all(f.is_file() for f in files):
+        raise AssertionError("sanity_check did not write its two figures")
+
+    # preprocessing on a hard-linked copy of the split == its metadata.json
+    meta = geofiles.load_json(root / "metadata.json")
+    copy = out / "split_copy"
+    for aoi in meta:
+        shutil.copytree(root / aoi, copy / aoi, copy_function=os.link)
+    _, written, sec = _run_cli("preprocessing", preprocessing.main, ["-d", str(copy)])
+    same = geofiles.load_json(copy / "metadata.json") == meta == written
+    log(f"preprocessing ({sec:.2f} s): {copy / 'metadata.json'} == the split's "
+        f"metadata.json ({len(meta)} AOIs): {same}")
+    if not same:
+        raise AssertionError("preprocessing wrote another metadata.json")
+    log(f"offline CLIs: {time.perf_counter() - t_start:.1f} s wall, checks included")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -1449,6 +1767,8 @@ def main() -> None:
         phase_train(card, rows, dev, root, aois)
         phase_dualtask(card, rows, dev, root, aois)
         phase_semisup(card, rows, dev, root, aois)
+        phase_siamunet_diff(card, rows, dev, root, aois)
+        phase_clis(dev, root, aois)
     finally:
         tmp.cleanup()
     log(f"kernels: {json.dumps(list(rows))}; chip_smoke wall "

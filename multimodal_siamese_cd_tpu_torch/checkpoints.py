@@ -13,6 +13,7 @@ reference's ``load_checkpoint`` and the JAX package's
 from __future__ import annotations
 
 import os
+import pickle
 from pathlib import Path
 
 import torch
@@ -62,11 +63,15 @@ def save_checkpoint(model, optimizer, epoch, step: int, cfg) -> Path:
     return save_file
 
 
-def load_checkpoint(epoch, cfg, device=None):
+def load_checkpoint(epoch, cfg, net_file: Path | None = None, device=None):
     """Rebuild model + AdamW on ``device`` (default: the card) and restore
-    them (reference networks.py:41-56). Accepts the reference's
+    them (reference networks.py:41-56) from ``net_file``, by default the
+    epoch's :func:`checkpoint_file`. Accepts the reference's
     ``module.``-prefixed ``network`` and a bare ``state_dict``. Returns
-    ``(model, optimizer, step)``.
+    ``(model, optimizer, step)``. A missing file raises
+    ``FileNotFoundError``; one that ``torch.load`` or ``load_state_dict``
+    refuses raises ``ValueError`` naming the file (the JAX package's
+    contract).
 
     The file is read onto the host: ``load_state_dict`` moves the weights
     and AdamW's moments to the parameters' device and leaves AdamW's step
@@ -76,10 +81,16 @@ def load_checkpoint(epoch, cfg, device=None):
     device = resolve_device(device)
     model = create_network(cfg, device=device)
     optimizer = make_optimizer(model, cfg)
-    ckpt = torch.load(checkpoint_file(cfg, epoch), map_location="cpu",
-                      weights_only=True)
-    network = {k[len(_PREFIX):] if k.startswith(_PREFIX) else k: v
-               for k, v in ckpt['network'].items()}
-    model.load_state_dict(network, strict=True)
-    optimizer.load_state_dict(ckpt['optimizer'])
-    return model, optimizer, int(ckpt['step'])
+    file = checkpoint_file(cfg, epoch) if net_file is None else Path(net_file)
+    try:                         # a missing file keeps its FileNotFoundError
+        ckpt = torch.load(file, map_location="cpu", weights_only=True)
+        network = {k[len(_PREFIX):] if k.startswith(_PREFIX) else k: v
+                   for k, v in ckpt['network'].items()}
+        model.load_state_dict(network, strict=True)
+        optimizer.load_state_dict(ckpt['optimizer'])
+        step = int(ckpt['step'])
+    except (RuntimeError, KeyError, TypeError, ValueError, EOFError,
+            pickle.UnpicklingError) as e:
+        raise ValueError(f"Corrupt or incompatible checkpoint {file}: "
+                         f"{type(e).__name__}: {e}") from e
+    return model, optimizer, step

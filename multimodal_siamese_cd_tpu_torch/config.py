@@ -8,7 +8,7 @@ so the PyTorch package imports nothing of it. Contract:
     (fvcore ``load_yaml_with_base`` semantics; child keys win),
   * ``merge_from_list`` for ``KEY.SUBKEY value`` CLI override pairs; unknown
     keys raise unless listed in :data:`EXTENSION_KEYS`,
-  * ``setup_cfg`` / ``load_cfg`` read
+  * ``setup_cfg`` / ``setup_cfg_manual`` / ``load_cfg`` read
     ``configs/{name}.yaml`` — the same files the JAX package reads.
 
 YAML is loaded safely (a ``yaml.SafeLoader`` subclass) with YAML-1.2-style
@@ -278,6 +278,22 @@ def setup_cfg(args) -> CfgNode:
     if not Path(args.dataset_dir).exists():
         raise FileNotFoundError(f"dataset dir missing: {args.dataset_dir}")
     cfg.PATHS.DATASET = args.dataset_dir
+    return cfg
+
+
+def setup_cfg_manual(config_name: str, output_dir: Path, dataset_dir: Path) -> CfgNode:
+    """Programmatic variant (reference: experiment_manager.py:72-81): the
+    config file alone, no overrides, with NAME and PATHS set."""
+    cfg = new_config()
+    cfg.merge_from_file(config_file_path(config_name))
+    cfg.NAME = config_name
+    cfg.PATHS.ROOT = str(Path.cwd())
+    if not Path(output_dir).exists():
+        raise FileNotFoundError(f"output dir missing: {output_dir}")
+    cfg.PATHS.OUTPUT = str(output_dir)
+    if not Path(dataset_dir).exists():
+        raise FileNotFoundError(f"dataset dir missing: {dataset_dir}")
+    cfg.PATHS.DATASET = str(dataset_dir)
     return cfg
 
 

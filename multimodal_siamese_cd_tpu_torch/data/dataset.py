@@ -17,7 +17,9 @@ keys.
   JAX package's ``crop_only=True, return_stack=True`` dataset assembles
   from the same generator. Flips, rotations and the photometric jitter run
   on the card (:mod:`.augmentations`); the JAX package's host-side
-  post-crop pipeline has no counterpart here.
+  post-crop pipeline has no counterpart here. ``ds[i]`` in training mode
+  (:meth:`augmented_item`) runs that same device augmentation on the CPU
+  over one crop stack and splits it into the reference's item.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .. import geofiles
 from . import augmentations
@@ -97,7 +100,42 @@ class MultimodalCDDataset:
 
     # -- item assembly (reference datasets.py:111-181) ----------------------------
     def __getitem__(self, index: int) -> dict:
-        return self.get(index)
+        """The reference's item: a full scene in no-augmentation mode, the
+        augmented training crop (:meth:`augmented_item`) otherwise."""
+        if self.no_augmentations:
+            return self.get(index)
+        return self.augmented_item(index)
+
+    def augmented_item(self, index: int,
+                       rng: np.random.Generator | None = None) -> dict:
+        """One training sample as the reference's item (what
+        sanity_check.py shows): the crop stack of :meth:`get`, run through
+        the device augmentation of :mod:`.augmentations` on the CPU in
+        float32 (flips, rot90, color shift and gamma per the config; labels
+        move with the imagery), then split into (S, S, C) float32 ``x_t1``,
+        ``x_t2``, ``y_change`` (and ``y_sem_t1`` / ``y_sem_t2`` with
+        building labels). ``rng`` (default: the dataset's own) draws the
+        crop and then seeds the augmentation's generator."""
+        rng = self.rng if rng is None else rng
+        item = self.get(index, rng)
+        stack = torch.from_numpy(item.pop('stack').astype(np.float32))[None]
+        n_img = 2 * len(self.s1_band_indices) + 2 * len(self.s2_band_indices)
+        a = self.cfg.AUGMENTATION
+        generator = torch.Generator().manual_seed(int(rng.integers(2 ** 63)))
+        decisions = augmentations.draw_augmentation(
+            1, n_img, flip=bool(a.RANDOM_FLIP), rotate=bool(a.RANDOM_ROTATE),
+            color_shift=bool(a.COLOR_SHIFT), gamma=bool(a.GAMMA_CORRECTION),
+            generator=generator, dtype=torch.float32, device='cpu')
+        hwc = augmentations.apply_augmentation(
+            stack, n_img_channels=n_img, **decisions)[0].permute(1, 2, 0).numpy()
+        x_t1, x_t2 = self._split_imgs(hwc[..., :n_img])
+        item.update(x_t1=np.ascontiguousarray(x_t1),
+                    x_t2=np.ascontiguousarray(x_t2),
+                    y_change=np.ascontiguousarray(hwc[..., n_img + 2:]))
+        if self.include_building_labels:
+            item['y_sem_t1'] = np.ascontiguousarray(hwc[..., n_img:n_img + 1])
+            item['y_sem_t2'] = np.ascontiguousarray(hwc[..., n_img + 1:n_img + 2])
+        return item
 
     def get(self, index: int, rng: np.random.Generator | None = None,
             out: np.ndarray | None = None) -> dict:
@@ -324,9 +362,24 @@ class MultimodalCDDataset:
         wire['valid'] = valid
         return wire
 
+    def get_aoi_ids(self) -> list:
+        # sorted: set order varies with PYTHONHASHSEED across runs
+        return sorted(set(self.aoi_ids))
+
+    def get_index(self, aoi_id: str):
+        """Linear AOI lookup (reference datasets.py:183-187); None when the
+        AOI is not in the split."""
+        for index, candidate in enumerate(self.aoi_ids):
+            if aoi_id == candidate:
+                return index
+        return None
+
     def __len__(self) -> int:
         return self.length
 
     def __iter__(self):
         for i in range(self.length):
             yield self[i]
+
+    def __str__(self) -> str:
+        return f'Dataset with {self.length} samples.'

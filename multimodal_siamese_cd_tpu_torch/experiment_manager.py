@@ -12,4 +12,5 @@ from .config import (  # noqa: F401
     load_yaml_with_base,
     new_config,
     setup_cfg,
+    setup_cfg_manual,
 )

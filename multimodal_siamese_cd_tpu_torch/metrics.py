@@ -1,4 +1,4 @@
-"""Evaluation metrics (the JAX package's ``metrics.py:28-109, 206-232``).
+"""Evaluation metrics (the JAX package's ``metrics.py``).
 
   * :class:`MultiThresholdMetric` — TP/TN/FP/FN per threshold accumulated
     over samples as float64 on the host. The reference's FP/FN formulas are
@@ -12,6 +12,8 @@
     the offline assessment's strict rule ``pred = p > thr`` (the reference's
     ``*_from_prob`` functions) and its pooled F1 / precision / recall; the
     kernel's strict variant computes the same counts on the card.
+  * the reference's functional ``true_pos`` ... ``f1_score`` (torch) and
+    its numpy ``*_from_prob`` functions over pooled probability arrays.
 
 Thresholding replicates the reference's round-offset formulation
 ``round(y_pred - threshold + 0.5) >= 1`` (reference metrics.py:26) with
@@ -140,3 +142,99 @@ def prob_metrics_from_counts(tp, fp, fn):
     p = tp / (tp + fp)
     r = tp / (tp + fn)
     return 2 * (p * r) / (p + r), p, r
+
+
+# --- functional rounded-probability metrics (reference metrics.py:69-113) ----
+
+def true_pos(y_true, y_pred, dim=0):
+    return torch.sum(y_true * torch.round(y_pred), dim=dim)
+
+
+def false_pos(y_true, y_pred, dim=0):
+    return torch.sum((1.0 - y_true) * torch.round(y_pred), dim=dim)
+
+
+def false_neg(y_true, y_pred, dim=0):
+    return torch.sum(y_true * (1.0 - torch.round(y_pred)), dim=dim)
+
+
+def precision(y_true, y_pred, dim):
+    tp = true_pos(y_true, y_pred, dim)
+    fp = false_pos(y_true, y_pred, dim)
+    return tp / torch.clamp(tp + fp, min=CLAMP)
+
+
+def recall(y_true, y_pred, dim):
+    tp = true_pos(y_true, y_pred, dim)
+    fn = false_neg(y_true, y_pred, dim)
+    return tp / torch.clamp(tp + fn, min=CLAMP)
+
+
+def f1_score(gts, preds, multi_threshold_mode: bool = False, dim=(-1, -2),
+             **legacy):
+    """F1 of rounded probabilities over ``dim`` in float32; accepts the
+    reference API's misspelled ``multi_threashold_mode`` keyword
+    (utils/metrics.py:97)."""
+    multi_threshold_mode = legacy.pop("multi_threashold_mode",
+                                      multi_threshold_mode)
+    if legacy:
+        raise TypeError(f"unexpected keyword arguments: {sorted(legacy)}")
+    gts = torch.as_tensor(gts, dtype=torch.float32)
+    preds = torch.as_tensor(preds, dtype=torch.float32)
+    if multi_threshold_mode:
+        gts = torch.broadcast_to(gts[:, None, ...], preds.shape)
+    r = recall(gts, preds, dim)
+    p = precision(gts, preds, dim)
+    return 2.0 * r * p / torch.clamp(r + p, min=CLAMP)
+
+
+# --- numpy probability metrics for offline assessment ------------------------
+# (reference metrics.py:116-150); the cache-disabled path of the dual-task
+# assessment pools every scene's probabilities through them
+
+def true_positives_from_prob(y_prob: np.ndarray, y_true: np.ndarray,
+                             threshold: float = 0.5):
+    y_pred = y_prob > threshold
+    return np.sum(np.logical_and(y_pred, y_true))
+
+
+def false_positives_from_prob(y_prob: np.ndarray, y_true: np.ndarray,
+                              threshold: float = 0.5):
+    y_pred = y_prob > threshold
+    return np.sum(np.logical_and(y_pred, np.logical_not(y_true)))
+
+
+def false_negatives_from_prob(y_prob: np.ndarray, y_true: np.ndarray,
+                              threshold: float = 0.5):
+    y_pred = y_prob > threshold
+    return np.sum(np.logical_and(np.logical_not(y_pred), y_true))
+
+
+def precision_from_prob(y_prob: np.ndarray, y_true: np.ndarray,
+                        threshold: float = 0.5):
+    tp = true_positives_from_prob(y_prob, y_true, threshold)
+    fp = false_positives_from_prob(y_prob, y_true, threshold)
+    return tp / (tp + fp)
+
+
+# The reference spells it 'precsision_from_prob' (metrics.py:137); the alias
+# keeps code written against the reference API working.
+precsision_from_prob = precision_from_prob
+
+
+def recall_from_prob(y_prob: np.ndarray, y_true: np.ndarray,
+                     threshold: float = 0.5):
+    tp = true_positives_from_prob(y_prob, y_true, threshold)
+    fn = false_negatives_from_prob(y_prob, y_true, threshold)
+    return tp / (tp + fn)
+
+
+def f1_score_from_prob(y_prob: np.ndarray, y_true: np.ndarray,
+                       threshold: float = 0.5):
+    p = precision_from_prob(y_prob, y_true, threshold)
+    r = recall_from_prob(y_prob, y_true, threshold)
+    return 2 * (p * r) / (p + r)
+
+
+def root_mean_square_error(y_pred: np.ndarray, y_true: np.ndarray):
+    return np.sqrt(np.sum(np.square(y_pred - y_true)) / np.size(y_true))

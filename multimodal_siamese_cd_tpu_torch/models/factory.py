@@ -1,12 +1,14 @@
 """Model factory: ``create_network(cfg)`` keyed by ``cfg.MODEL.TYPE``
 (reference utils/networks.py:12-27; the JAX package's ``models/factory.py``).
 
-Builds every type of the reference factory: 'unet', 'dualstreamunet',
-'siameseunet', 'dtsiameseunet', 'whatevernet' and 'whatevernet2'.
-'siamunet_diff', which the JAX package adds, is not ported yet and raises
-``NotImplementedError``. ``MODEL.PACKED_FULLRES`` is accepted and ignored:
-packing is a layout trick for the TPU's matrix units, and the port always
-builds the reference-shaped graph.
+Builds every type of the JAX package's factory: the reference's 'unet',
+'dualstreamunet', 'siameseunet', 'dtsiameseunet', 'whatevernet' and
+'whatevernet2', and 'siamunet_diff' (FC-Siam-diff at its fixed published
+widths; ``MODEL.TOPOLOGY`` does not apply to it), which the JAX package
+adds. An unknown type raises ``NotImplementedError``.
+``MODEL.PACKED_FULLRES`` is accepted and ignored: packing is a layout
+trick for the TPU's matrix units, and the port always builds the
+reference-shaped graph.
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ def create_network(cfg, device=None, generator: torch.Generator | None = None):
     model_type = cfg.MODEL.TYPE
     if model_type not in _MODELS:
         raise NotImplementedError(
-            f"MODEL.TYPE {model_type!r} is not ported yet (ROADMAP.md queue "
-            f"1); this package builds {sorted(_MODELS)}")
+            f"unknown MODEL.TYPE {model_type!r}; this package builds "
+            f"{sorted(_MODELS)}")
     model = _MODELS[model_type](
         tuple(cfg.MODEL.TOPOLOGY), input_channels(cfg),
         out_channels=cfg.MODEL.OUT_CHANNELS, compute_dtype=compute_dtype(cfg),
@@ -66,4 +68,5 @@ _MODELS = {
     'dtsiameseunet': networks.DualTaskSiameseUNet,
     'whatevernet': networks.WhateverNet,
     'whatevernet2': networks.WhateverNet2,
+    'siamunet_diff': networks.SiamUnetDiff,
 }

@@ -15,13 +15,17 @@ package's class of the same name.
                     modality with its own head, plus a fusion head (:203-242)
   'whatevernet2'    ``WhateverNet2``: as whatevernet, each stream early
                     fusion (:245-281)
+  'siamunet_diff'   ``SiamUnetDiff``: FC-Siam-diff at its fixed published
+                    widths, in the reference's flat layer names, with
+                    spatial dropout (:284-373)
 
 The two-stream models split the channels of each date at ``n_s1_bands``
 (every constructor takes it, so the factory calls them all alike; the
 single-stream ones ignore it): stream 1 is S1 and stream 2 is S2, the order of
 :func:`..train_lib.split_stack`. Their top-level attribute names are the
 flax modules' (``inc_stream1``, ``encoder_stream1``, ..., ``outc_fusion``),
-so the reference ``state_dict`` grammar holds for every type.
+so the reference ``state_dict`` grammar holds for every U-Net type
+(``SiamUnetDiff`` keeps the reference's flat names instead).
 
 Fresh initialization is chosen on purpose to match the JAX package, not
 torch's defaults: every conv and transposed-conv kernel is drawn
@@ -43,8 +47,10 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from .batchnorm import BatchNorm2d
 from .blocks import Decoder, Encoder, InConv, OutConv
 
 # flax lecun_normal: truncated_normal over [-2, 2] rescaled to unit
@@ -258,3 +264,138 @@ class WhateverNet2(WhateverNet):
     instead of a Siamese difference (reference networks.py:266-310)."""
 
     _SIAMESE = False
+
+
+# FC-Siam-diff in the reference's flat layer names (the JAX package's
+# torch_port._siamunet_diff_key_map): encoder stage s runs conv{s}{i} and
+# bn{s}{i} for i = 1..n; decoder stage s runs upconv{s}, then conv{s}{j}d and
+# bn{s}{j}d for the listed j, in that (descending) order; conv11d, the
+# logits head, has no BatchNorm.
+SIAMUNET_DIFF_ENCODER = ((16, 2), (32, 2), (64, 3), (128, 3))  # width, convs
+SIAMUNET_DIFF_DECODER = (                 # stage, upconv width, (j, width)
+    (4, 128, ((3, 128), (2, 128), (1, 64))),
+    (3, 64, ((3, 64), (2, 64), (1, 32))),
+    (2, 32, ((2, 32), (1, 16))),
+    (1, 16, ((2, 16), (1, None))),        # (1, None): conv11d
+)
+SIAMUNET_DIFF_DROPOUT = 0.2
+
+
+def siamunet_diff_flax_names() -> dict:
+    """The JAX package's ``SiamUnetDiff`` module paths -> this package's flat
+    attribute names: ``enc{s}_{i}/{conv,bn}``, ``dec{s}_{k}/{conv,bn}`` (the
+    k-th unit the stage applies), ``upconv{s}`` and ``outc`` (conv11d)."""
+    names = {}
+    for s, (_, n) in enumerate(SIAMUNET_DIFF_ENCODER, start=1):
+        for i in range(1, n + 1):
+            names[(f"enc{s}_{i}", "conv")] = f"conv{s}{i}"
+            names[(f"enc{s}_{i}", "bn")] = f"bn{s}{i}"
+    for s, _, convs in SIAMUNET_DIFF_DECODER:
+        names[(f"upconv{s}",)] = f"upconv{s}"
+        for k, (j, width) in enumerate(convs, start=1):
+            if width is None:
+                names[("outc",)] = f"conv{s}{j}d"
+            else:
+                names[(f"dec{s}_{k}", "conv")] = f"conv{s}{j}d"
+                names[(f"dec{s}_{k}", "bn")] = f"bn{s}{j}d"
+    return names
+
+
+def spatial_dropout(x: torch.Tensor, p: float,
+                    generator: torch.Generator) -> torch.Tensor:
+    """flax's ``nn.Dropout(p, broadcast_dims=(1, 2))`` on NHWC (the JAX
+    package's networks.py:304) for NCHW: one keep draw per (sample,
+    channel), ``uniform < 1 - p`` from ``generator`` (on ``x``'s device);
+    kept channels divided by ``1 - p``, dropped ones zero."""
+    keep = 1.0 - p
+    mask = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, x.new_zeros(()))
+
+
+class SiamUnetDiff(nn.Module):
+    """FC-Siam-diff (Daudt, Le Saux & Boulch, ICIP 2018; reference
+    networks.py:466-658, the JAX package's networks.py:309-373).
+
+    Fixed stage widths 16/32/64/128 (2/2/3/3 convs; ``topology`` is
+    ignored), each unit conv -> BN -> ReLU -> spatial dropout 0.2. Both
+    dates run the shared encoder, t1 first; the decoder starts from the
+    **t2** bottleneck and concatenates each upsampled map with ``|skip_t1 -
+    skip_t2|``, the upsampled map edge-padded on the bottom/right where the
+    skip is larger. Every decoder conv and the logits head are transposed
+    3x3 convs (stride 1, padding 1); ``upconv{s}`` is ``ConvTranspose2d(k3,
+    s2, padding=1, output_padding=1)``, the flax padding ``((1, 2), (1,
+    2))``. Returns float32 logits.
+
+    In train mode ``forward`` needs ``generator``, the explicit generator of
+    the dropout draws (the train step passes its per-step generator, see
+    :func:`..train_lib.augment_generator`); torch's global generator is
+    never used."""
+
+    draws_dropout = True    # the train step passes its generator to forward
+
+    def __init__(self, topology: Sequence[int], in_channels: int,
+                 out_channels: int = 1,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None,
+                 n_s1_bands: int | None = None):
+        del topology, n_s1_bands    # fixed published widths, one stream
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        ch = in_channels
+        for s, (width, n) in enumerate(SIAMUNET_DIFF_ENCODER, start=1):
+            for i in range(1, n + 1):
+                setattr(self, f"conv{s}{i}", nn.Conv2d(ch, width, 3, padding=1))
+                setattr(self, f"bn{s}{i}", BatchNorm2d(width, eps=1e-5,
+                                                      momentum=0.1))
+                ch = width
+        for s, up_width, convs in SIAMUNET_DIFF_DECODER:
+            setattr(self, f"upconv{s}", nn.ConvTranspose2d(
+                ch, up_width, 3, stride=2, padding=1, output_padding=1))
+            ch = up_width + SIAMUNET_DIFF_ENCODER[s - 1][0]     # + the skip
+            for j, width in convs:
+                out = out_channels if width is None else width
+                setattr(self, f"conv{s}{j}d",
+                        nn.ConvTranspose2d(ch, out, 3, padding=1))
+                if width is not None:
+                    setattr(self, f"bn{s}{j}d", BatchNorm2d(width, eps=1e-5,
+                                                           momentum=0.1))
+                ch = out
+        lecun_normal_(self, generator)
+
+    def _unit(self, x: torch.Tensor, name: str, generator) -> torch.Tensor:
+        """conv{name} -> bn{name} -> ReLU -> spatial dropout (train mode)."""
+        x = torch.relu(getattr(self, f"bn{name}")(getattr(self, f"conv{name}")(x)))
+        if self.training:
+            x = spatial_dropout(x, SIAMUNET_DIFF_DROPOUT, generator)
+        return x
+
+    def _encode(self, x: torch.Tensor, generator):
+        skips = []
+        for s, (_, n) in enumerate(SIAMUNET_DIFF_ENCODER, start=1):
+            for i in range(1, n + 1):
+                x = self._unit(x, f"{s}{i}", generator)
+            skips.append(x)
+            x = F.max_pool2d(x, 2)
+        return x, skips
+
+    def forward(self, x_t1: torch.Tensor, x_t2: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.training and generator is None:
+            raise ValueError("SiamUnetDiff in train mode draws its dropout "
+                             "masks from an explicit generator; pass one")
+        _, skips1 = self._encode(x_t1, generator)
+        x, skips2 = self._encode(x_t2, generator)   # the t2 bottleneck
+        for s, _, convs in SIAMUNET_DIFF_DECODER:
+            x = getattr(self, f"upconv{s}")(x)
+            skip = (skips1[s - 1] - skips2[s - 1]).abs()
+            dh, dw = skip.shape[2] - x.shape[2], skip.shape[3] - x.shape[3]
+            if dh or dw:
+                x = F.pad(x, (0, dw, 0, dh), mode="replicate")
+            x = torch.cat([x, skip], dim=1)
+            for j, width in convs:
+                if width is None:
+                    x = getattr(self, f"conv{s}{j}d")(x)
+                else:
+                    x = self._unit(x, f"{s}{j}d", generator)
+        return x.float()

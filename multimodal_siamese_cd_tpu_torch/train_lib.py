@@ -79,9 +79,10 @@ def autocast(dtype: torch.dtype, device: torch.device):
 
 
 def augment_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
-    """The generator of one step's augmentation draws, a function of
-    (seed, step) alone — like the JAX package's ``fold_in(rng, step)``, so a
-    resumed run draws what the unbroken run would have."""
+    """The generator of one step's augmentation draws and then its dropout
+    masks, a function of (seed, step) alone — like the JAX package's
+    ``fold_in(rng, step)``, so a resumed run draws what the unbroken run
+    would have."""
     state = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
@@ -113,7 +114,8 @@ def _make_step(model, optimizer, cfg, losses_of):
     is the wire batch on the model's device, ``is_labeled`` its float32
     ``(B,)`` label mask there, ``global_step`` the number of steps taken
     before this one (with ``cfg.SEED`` it seeds the
-    augmentation). The step computes in the config's dtype on the card and
+    augmentation and, for a model with dropout, its masks). The step
+    computes in the config's dtype on the card and
     in float32 on the CPU; the metrics are left on the device (no
     synchronisation).
 
@@ -130,13 +132,20 @@ def _make_step(model, optimizer, cfg, losses_of):
     device = next(model.parameters()).device
     dtype = compute_dtype(cfg) if device.type == "cuda" else torch.float32
 
+    # a model with dropout (siamunet_diff) draws its masks from the step's
+    # generator, after the augmentation's draws
+    draws_dropout = getattr(model, "draws_dropout", False)
+
     def step(stack: torch.Tensor, is_labeled, global_step: int) -> dict:
         model.train()
-        stack_aug = augment(stack, cfg, layout, dtype,
-                            augment_generator(cfg.SEED, global_step, device))
+        generator = augment_generator(cfg.SEED, global_step, device)
+        stack_aug = augment(stack, cfg, layout, dtype, generator)
         x_t1, x_t2, *labels = split_stack(stack_aug, layout)
         with autocast(dtype, device):
-            outputs = model(x_t1, x_t2)
+            if draws_dropout:
+                outputs = model(x_t1, x_t2, generator=generator)
+            else:
+                outputs = model(x_t1, x_t2)
         metrics = losses_of(outputs, is_labeled, *labels)
         optimizer.zero_grad(set_to_none=True)
         metrics["loss"].backward()

@@ -82,7 +82,8 @@ def _loader(cfg) -> TrainLoader:
 
 # Per-regime differences of the otherwise identical loop (the JAX package's
 # trainers.py:352-371):
-#   keys            — device metric scalars accumulated per log window
+#   keys            — device metric scalars accumulated per log window, in
+#                     the order of the JAX package's payload
 #   track_labels    — also collect each batch's (n_labeled, n_notlabeled);
 #                     the window is then reduced by _semisup_window_means,
 #                     else its payload is the keys' means and
@@ -99,7 +100,7 @@ _REGIMES = {
                                  'loss', 'sup_loss', 'cons_loss'),
                            track_labels=True, debug_test_eval=False,
                            ckpt_in_debug=True),
-    'dualtask': dict(keys=('loss', 'sem_loss', 'change_loss'),
+    'dualtask': dict(keys=('change_loss', 'sem_loss', 'loss'),
                      track_labels=False, debug_test_eval=True,
                      ckpt_in_debug=False),
 }

@@ -16,12 +16,28 @@ written here against plain nested dicts:
   * BatchNorm      scale/bias -> weight/bias, mean/var ->
                    running_mean/running_var; ``num_batches_tracked``
                    (which flax does not keep) is synthesized as ``step``
+
+``SiamUnetDiff`` keeps the reference's flat names (``conv11`` ...
+``upconv4`` ... ``conv43d``, ``conv11d``): its flax modules ``enc{s}_{i}``,
+``dec{s}_{k}``, ``upconv{s}`` and ``outc`` map onto them through
+:func:`..models.networks.siamunet_diff_flax_names`, the inverse of the JAX
+package's ``torch_port._siamunet_diff_key_map``; its decoder convs, its
+upsamplers and its head are transposed convs.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
+
+from .models.networks import siamunet_diff_flax_names
+
+_FLAT_NAMES = siamunet_diff_flax_names()
+# torch prefixes of transposed convs: a U-Net decoder's upsampler, and
+# SiamUnetDiff's upsamplers, decoder convs and head
+_TRANSPOSED = re.compile(r"(.*\.up|upconv\d|conv\d\dd)")
 
 # flax DoubleConv submodule -> torch Sequential index (conv, BN, ReLU, conv,
 # BN, ReLU; reference networks.py:392-398)
@@ -65,13 +81,13 @@ def state_dict_from_jax(variables, step: int = 0) -> dict:
     bn_prefixes = set()
     for keys, leaf in _leaves(variables):
         coll, mod_path, name = keys[0], keys[1:-1], keys[-1]
-        prefix = _torch_prefix(mod_path)
+        prefix = _FLAT_NAMES.get(tuple(mod_path)) or _torch_prefix(mod_path)
         arr = np.asarray(leaf, dtype=np.float32)
         if mod_path[-1].startswith("bn"):
             bn_prefixes.add(prefix)
             out[f"{prefix}.{_BN_LEAVES[(coll, name)]}"] = arr
         elif name == "kernel":
-            if mod_path[-1] == "up":   # ConvTranspose2d: un-flip, permute
+            if _TRANSPOSED.fullmatch(prefix):   # ConvTranspose2d: un-flip, permute
                 arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
             else:                      # Conv2d
                 arr = arr.transpose(3, 2, 0, 1)

@@ -30,6 +30,10 @@ PORT_MODULES = [
     "train_supervised_dualtask", "ops.conv3x3",
     # slice 5: semi-supervised training
     "train_semisupervised",
+    # slice 6: siamunet_diff, the offline assessment, figure and dataset CLIs
+    "png", "bitmap_font", "visualization", "spacenet7", "dataset_helpers",
+    "assessment_change", "assessment_semantics", "qualitative_comparison",
+    "sanity_check", "preprocessing", "upload_study_area",
 ]
 
 

@@ -18,6 +18,7 @@ running statistics are drawn with numpy and moved with
   weights exactly.
 """
 
+import json
 import types
 
 import jax
@@ -30,6 +31,7 @@ from multimodal_siamese_cd_tpu import evaluation as jax_eval
 from multimodal_siamese_cd_tpu import metrics as jax_metrics
 from multimodal_siamese_cd_tpu import torch_port
 from multimodal_siamese_cd_tpu import train_lib as jax_train_lib
+from multimodal_siamese_cd_tpu import trainers as jax_trainers
 from multimodal_siamese_cd_tpu.config import load_cfg as jax_load_cfg
 from multimodal_siamese_cd_tpu.data.dataset import MultimodalCDDataset as JaxDataset
 from multimodal_siamese_cd_tpu.data.loader import TrainLoader as JaxTrainLoader
@@ -396,6 +398,14 @@ def test_cli_debug_and_checkpoint_epochs(fixture_dataset, tmp_path, step_setup, 
     for key in ('"change_loss"', '"sem_loss"', '"loss"', '"train_time"',
                 '"test F1"'):
         assert key in log, key
+    # each window line writes its losses in the JAX package's payload order
+    want = list(jax_trainers._window_summary(
+        "dualtask", {k: [0.5] for k in ("loss", "sem_loss", "change_loss")}, []))
+    assert want == ["change_loss", "sem_loss", "loss", "labeled_percentage"]
+    windows = [json.loads(line) for line in log.splitlines() if '"train_time"' in line]
+    assert windows
+    for r in windows:
+        assert [k for k in r if k != "_t"][:len(want)] == want, list(r)
 
     ckpt = out / "networks" / "dtsiamese_checkpoint1.pt"
     payload = torch.load(ckpt, map_location="cpu", weights_only=True)

@@ -154,6 +154,12 @@ def test_factory_contract():
     assert next(model.parameters()).dtype == torch.float32
     assert blocks.encoder_widths([64, 128, 256, 512]) == [128, 256, 512, 512]
     assert blocks.decoder_up_topology([64, 128, 256, 512]) == [64, 128, 256, 512, 512]
-    cfg.MODEL.TYPE = "siamunet_diff"
-    with pytest.raises(NotImplementedError, match="siamunet_diff"):
+    cfg.MODEL.TYPE = "siamunet_diff"      # every type of the JAX factory builds
+    model = factory.create_network(cfg, device="cpu")
+    assert type(model).__name__ == "SiamUnetDiff"
+    # input channels from the bands, fixed published widths whatever TOPOLOGY
+    assert model.conv11.in_channels == 6 and model.conv43.out_channels == 128
+    assert model.conv11d.out_channels == 1
+    cfg.MODEL.TYPE = "no_such_model"
+    with pytest.raises(NotImplementedError, match="no_such_model"):
         factory.create_network(cfg, device="cpu")
