@@ -20,9 +20,10 @@ script exits non-zero:
        b. bn_stats at every BatchNorm shape of a full-width training step and
           at ragged shapes, bf16 and f32, ``a is b`` and not, against the
           plain version in float64 (|kernel - ref| <= 1e-5 · Σ|a·b| per
-          channel), and two launches on one input bit-equal; beside it the
-          one PyTorch call that computes the same sums
-          (``torch.batch_norm_backward_reduce``), as a yardstick;
+          channel), and two launches on one input bit-equal; its time per
+          launch from CUDA graphs (:func:`bn_kernel_times`, as phase 8a
+          times it), and beside it the one PyTorch call that computes the
+          same sums (``torch.batch_norm_backward_reduce``), as a yardstick;
        c. conv3x3, the op's own path (no model calls it): at the JAX test's
           shape, the Pallas tool's shape, every U-Net level at batch 8 and
           256^2 crops and a ragged shape, bf16 and f32, against the plain
@@ -76,7 +77,9 @@ script exits non-zero:
      ``assessment_change`` on phase 5's checkpoint (its printed line equal
      to ``inference_loop``'s on that checkpoint), ``assessment_semantics``
      on phase 6's (its three blocks equal to the pooled strict counts of
-     that checkpoint, its strict launches counted), the colored zoom
+     that checkpoint, its strict launches counted), again with the scene
+     cache off (the float32 items counted on the card by the strict kernel,
+     equal to ``dualtask_item_counts``), the colored zoom
      comparison over 3 AOIs, ``sanity_check`` for 2 samples, and
      ``preprocessing`` on a hard-linked copy of the split (its
      metadata.json equal to the split's).
@@ -195,6 +198,34 @@ def cuda_time_ms(fn, runs: int, inner: int = 1, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def graph_time_ms(fns: dict, order: list, inner: int, rounds: int) -> dict:
+    """Per-call device time of each function in ``fns``: each is captured
+    once as a CUDA graph of ``inner`` back-to-back calls, and the graphs
+    are replayed ``rounds`` times in ``order`` (e.g. kernel, cuDNN, cuDNN,
+    kernel), each replay timed with CUDA events; the median per name."""
+    graphs = {}
+    for name, fn in fns.items():
+        fn()                                     # warm-up, outside the capture
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(inner):
+                fn()
+        graphs[name] = g
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[name].replay()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / inner)
+    del graphs
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def profile_breakdown(label: str, fn, top: int = 8, match: str = "") -> None:
@@ -397,6 +428,35 @@ def _bn_error(got, a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     return ratio, max(float(d.max()) for d in diff)
 
 
+def bn_kernel_times(card: dict, dy: torch.Tensor, x: torch.Tensor) -> dict:
+    """``bn_stats`` per launch on ``dy``, ``x`` (B, C, H, W): backward
+    ``(dy, x)`` and forward ``(x, x)``, the device time from CUDA graphs of
+    20 launches replayed in turns (backward, forward, forward, backward),
+    median of 5 rounds, beside the bound: bytes (each input read once, two
+    (C,) float32 sums written) or operations (an add and an fma per
+    element at the float32 rate), whichever is larger."""
+    c = x.shape[1]
+    s1 = torch.empty(c, device=x.device)
+    s2 = torch.empty(c, device=x.device)
+    chunks = -(-x.shape[0] * x.shape[2] * x.shape[3] // bn_stats.CHUNK)
+    partial = torch.empty(c * chunks * 2, device=x.device)
+    got = graph_time_ms(
+        {"backward": lambda: bn_stats.launch(dy, x, s1, s2, partial),
+         "forward": lambda: bn_stats.launch(x, x, s1, s2, partial)},
+        ["backward", "forward", "forward", "backward"], inner=20, rounds=5)
+    bw, flops, _ = peaks(card["name"])
+    out_bytes = 2 * c * 4
+    back_bytes = dy.numel() * dy.element_size() + x.numel() * x.element_size() \
+        + out_bytes
+    fwd_bytes = x.numel() * x.element_size() + out_bytes
+    ops_ms = 3 * x.numel() / flops * 1e3
+    return {"chunks": chunks, "back_ms": got["backward"], "fwd_ms": got["forward"],
+            "back_bytes": back_bytes, "fwd_bytes": fwd_bytes, "ops_ms": ops_ms,
+            "back_bound": max(back_bytes / bw * 1e3, ops_ms),
+            "fwd_bound": max(fwd_bytes / bw * 1e3, ops_ms),
+            "back_by": "bytes" if back_bytes / bw * 1e3 >= ops_ms else "operations"}
+
+
 def phase_bn_stats(card: dict) -> dict:
     """bn_stats against its plain version in float64, at every BN shape of a
     full-width step and at ragged shapes; determinism; times at the largest
@@ -428,18 +488,10 @@ def phase_bn_stats(card: dict) -> dict:
         f"sum|a*b| ({worst:.4f} of the limit); max |kernel - ref| {max_err:.3e}")
 
     # time at the largest BN shape of the step (the stem and up1: 64 x 256^2)
-    shape = BN_SHAPES[0]
+    shape, c = BN_SHAPES[0], BN_SHAPES[0][1]
     dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    c = shape[1]
-    s1 = torch.empty(c, device=dev)
-    s2 = torch.empty(c, device=dev)
-    chunks = -(-shape[0] * shape[2] * shape[3] // bn_stats.CHUNK)
-    partial = torch.empty(c * chunks * 2, device=dev)
-    back_ms = cuda_time_ms(lambda: bn_stats.launch(dy, x, s1, s2, partial),
-                           runs=25, inner=20)
-    fwd_ms = cuda_time_ms(lambda: bn_stats.launch(x, x, s1, s2, partial),
-                          runs=25, inner=20)
+    t = bn_kernel_times(card, dy, x)
     plain_ms = cuda_time_ms(lambda: bn_stats.bn_stats_reference(dy, x),
                             runs=11, warmup=2)
     zeros, ones = torch.zeros(c, device=dev), torch.ones(c, device=dev)
@@ -457,32 +509,25 @@ def phase_bn_stats(card: dict) -> dict:
     got = bn_stats.bn_stats(dy, x)
     lib_diff = max(float((g - l.float()).abs().max()) for g, l in zip(got, lib_out[:2]))
     library_ms = cuda_time_ms(lib, runs=25, inner=5)
-    bw, flops, _ = peaks(card["name"])
-    numel = dy.numel()
-    out_bytes = 2 * c * 4
-    back_bytes, fwd_bytes = 2 * numel * 2 + out_bytes, numel * 2 + out_bytes
-    ops_ms = 3 * numel / flops * 1e3          # add + fma per element
-    back_bound = max(back_bytes / bw * 1e3, ops_ms)
-    fwd_bound = max(fwd_bytes / bw * 1e3, ops_ms)
-    log(f"bn_stats at {shape} bf16 on {card['smi']} (back-to-back launches, "
-        f"median of 25 x 20): backward (dy, x) {back_ms * 1e3:.1f} us, bound "
-        f"{back_bound * 1e3:.1f} us ({back_bytes / 1e6:.1f} MB at "
-        f"{bw / 1e12:.2f} TB/s; operations {ops_ms * 1e3:.2f} us), "
-        f"{back_bytes / back_ms / 1e6:.0f} GB/s; forward (x, x, read once) "
-        f"{fwd_ms * 1e3:.1f} us, bound {fwd_bound * 1e3:.1f} us, "
-        f"{fwd_bytes / fwd_ms / 1e6:.0f} GB/s")
+    bw = peaks(card["name"])[0]
+    log(f"bn_stats at {shape} bf16 on {card['smi']} (CUDA graphs of 20 launches, "
+        f"median of 5 rounds): backward (dy, x) {t['back_ms'] * 1e3:.1f} us, bound "
+        f"{t['back_bound'] * 1e3:.1f} us ({t['back_bytes'] / 1e6:.1f} MB at "
+        f"{bw / 1e12:.2f} TB/s; operations {t['ops_ms'] * 1e3:.2f} us), "
+        f"{t['back_bytes'] / t['back_ms'] / 1e6:.0f} GB/s; forward (x, x, read "
+        f"once) {t['fwd_ms'] * 1e3:.1f} us, bound {t['fwd_bound'] * 1e3:.1f} us, "
+        f"{t['fwd_bytes'] / t['fwd_ms'] / 1e6:.0f} GB/s")
     log(f"  plain version {plain_ms * 1e3:.1f} us; torch.batch_norm_backward_"
         f"reduce {library_ms * 1e3:.1f} us ({lib_note}; max |diff| vs kernel "
         f"{lib_diff:.3e})")
-    del dy, x
+    del dy, x, lib, got, lib_out
     torch.cuda.empty_cache()
     return {"name": "bn_stats", "route": "cuda",
             "source": "multimodal_siamese_cd_tpu_torch/ops/csrc/bn_stats.cu",
             "replaces": "tools/bench_bn_reduce.py:35",
-            "launches": None, "max_abs_err": max_err, "ms": back_ms,
-            "plain_ms": plain_ms, "bound_ms": back_bound,
-            "bound_by": "bytes" if back_bytes / bw * 1e3 >= ops_ms else "operations",
-            "library_ms": library_ms}
+            "launches": None, "max_abs_err": max_err, "ms": t["back_ms"],
+            "plain_ms": plain_ms, "bound_ms": t["back_bound"],
+            "bound_by": t["back_by"], "library_ms": library_ms}
 
 
 # -- phase 3c -----------------------------------------------------------------
@@ -491,34 +536,6 @@ def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at each value of ``t`` (8 significant bits)."""
     e = torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126)))
     return torch.exp2(e - 7)
-
-
-def graph_time_ms(fns: dict, order: list, inner: int, rounds: int) -> dict:
-    """Per-call device time of each function in ``fns``: each is captured
-    once as a CUDA graph of ``inner`` back-to-back calls, and the graphs
-    are replayed ``rounds`` times in ``order`` (e.g. kernel, cuDNN, cuDNN,
-    kernel), each replay timed with CUDA events; the median per name."""
-    graphs = {}
-    for name, fn in fns.items():
-        fn()                                     # warm-up, outside the capture
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, capture_error_mode="relaxed"):
-            for _ in range(inner):
-                fn()
-        graphs[name] = g
-    times = {name: [] for name in fns}
-    for _ in range(rounds):
-        for name in order:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graphs[name].replay()
-            end.record()
-            end.synchronize()
-            times[name].append(start.elapsed_time(end) / inner)
-    del graphs
-    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def _conv_inputs(gen, shape, dtype):
@@ -1470,41 +1487,6 @@ def phase_semisup(card: dict, rows: dict, dev: torch.device, root: Path,
 
 # -- phase 8 ------------------------------------------------------------------
 
-def _bn_times(card: dict, shapes: list) -> None:
-    """``bn_stats`` per launch at each of ``shapes`` in bf16, backward
-    ``(dy, x)`` and forward ``(x, x)``: the device time from CUDA graphs of
-    20 launches replayed in turns (backward, forward, forward, backward),
-    beside the bound (bytes: each input read once, two (C,) float32 sums
-    written; operations: 3 per element at the float32 rate), and the
-    wrapper's time per call back to back on CUDA events, which the host's
-    launch cost sets where it exceeds the kernel's."""
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    bw, flops, _ = peaks(card["name"])
-    for shape in shapes:
-        dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        c = shape[1]
-        s1 = torch.empty(c, device="cuda")
-        s2 = torch.empty(c, device="cuda")
-        chunks = -(-shape[0] * shape[2] * shape[3] // bn_stats.CHUNK)
-        partial = torch.empty(c * chunks * 2, device="cuda")
-        got = graph_time_ms(
-            {"backward": lambda: bn_stats.launch(dy, x, s1, s2, partial),
-             "forward": lambda: bn_stats.launch(x, x, s1, s2, partial)},
-            ["backward", "forward", "forward", "backward"], inner=20, rounds=5)
-        wrapper = cuda_time_ms(lambda: bn_stats.bn_stats(dy, x), runs=15, inner=20)
-        ops_ms = 3 * x.numel() / flops * 1e3
-        back_bound = max((2 * x.numel() * 2 + 2 * c * 4) / bw * 1e3, ops_ms)
-        fwd_bound = max((x.numel() * 2 + 2 * c * 4) / bw * 1e3, ops_ms)
-        back, fwd = got["backward"], got["forward"]
-        log(f"  bn_stats at {shape} bf16, {chunks} x {c} blocks: backward "
-            f"{back * 1e3:.2f} us (bound {back_bound * 1e3:.2f} us, "
-            f"{back_bound / back * 100:.1f}%), forward {fwd * 1e3:.2f} us (bound "
-            f"{fwd_bound * 1e3:.2f} us, {fwd_bound / fwd * 100:.1f}%); the wrapper "
-            f"back to back {wrapper * 1e3:.2f} us per call")
-        del dy, x
-
-
 def phase_siamunet_diff(card: dict, rows: dict, dev: torch.device, root: Path,
                         aois: list) -> None:
     out = root / "diff_out"
@@ -1637,9 +1619,18 @@ def phase_siamunet_diff(card: dict, rows: dict, dev: torch.device, root: Path,
     del model, optimizer, step_fn, batch
     torch.cuda.empty_cache()
     log(f"bn_stats per launch at siamunet_diff's BatchNorm shapes on {card['smi']} "
-        f"(CUDA graphs of 20 launches, median of 5 rounds; the wrapper: median "
-        f"of 15 x 20 calls):")
-    _bn_times(card, DIFF_BN_SHAPES)
+        f"(CUDA graphs of 20 launches, median of 5 rounds), bf16:")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for shape in DIFF_BN_SHAPES:
+        dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        t = bn_kernel_times(card, dy, x)
+        log(f"  bn_stats at {shape}, {t['chunks']} x {shape[1]} blocks: backward "
+            f"{t['back_ms'] * 1e3:.2f} us (bound {t['back_bound'] * 1e3:.2f} us, "
+            f"{t['back_bound'] / t['back_ms'] * 100:.1f}%), forward "
+            f"{t['fwd_ms'] * 1e3:.2f} us (bound {t['fwd_bound'] * 1e3:.2f} us, "
+            f"{t['fwd_bound'] / t['fwd_ms'] * 100:.1f}%)")
+        del dy, x
 
 
 def _split_opts(aois: list, test_ids: list) -> list:
@@ -1704,18 +1695,47 @@ def phase_clis(dev: torch.device, root: Path, aois: list) -> None:
                              dataset_mode="first_last", disable_multiplier=True,
                              disable_unlabeled=True)
     counts = evaluation.dualtask_quantitative_counts(model, ds, device=dev)
-    want = []
-    for title, key in (("Change", "change"), ("Change Sem", "change_sem"),
-                       ("Sem", "sem")):
-        f1, p, r = metrics.prob_metrics_from_counts(*counts[key])
-        want += [f"--{title}--",
-                 f"F1 score: {f1:.3f} - Precision: {p:.3f} - Recall {r:.3f}"]
+
+    def blocks(counts: dict) -> list:
+        lines = []
+        for title, key in (("Change", "change"), ("Change Sem", "change_sem"),
+                           ("Sem", "sem")):
+            f1, p, r = metrics.prob_metrics_from_counts(*counts[key])
+            lines += [f"--{title}--",
+                      f"F1 score: {f1:.3f} - Precision: {p:.3f} - Recall {r:.3f}"]
+        return lines
+
+    want = blocks(counts)
     got = [line for line in text.splitlines() if line.startswith(("--", "F1"))]
     log(f"assessment_semantics ({sec:.2f} s): strict launches {strict_cli}; the "
         f"three blocks == prob_metrics_from_counts over the checkpoint's pooled "
         f"counts: {got == want}")
     if got != want or strict_cli < 1:
         raise AssertionError(f"assessment_semantics printed {got}, expected {want}")
+
+    # the scene cache off: the float32 items, counted on the card by the
+    # strict kernel == dualtask_item_counts in process
+    _reset_counts()
+    text, _, sec = _run_cli("assessment_semantics, cache off",
+                            assessment_semantics.main,
+                            ["-c", "dtsiamese", "-o", str(dual_out)] + base + device
+                            + _split_opts(aois, aois)
+                            + ["DATALOADER.SCENE_CACHE", "False"])
+    _, _, strict_off = _counts()
+    cfg.DATALOADER.SCENE_CACHE = False
+    ds = MultimodalCDDataset(cfg, "test", no_augmentations=True,
+                             dataset_mode="first_last", disable_multiplier=True,
+                             disable_unlabeled=True)
+    counts_off = evaluation.dualtask_item_counts(model, ds, device=dev)
+    want = blocks(counts_off)
+    got = [line for line in text.splitlines() if line.startswith(("--", "F1"))]
+    log(f"assessment_semantics, cache off ({sec:.2f} s): strict launches "
+        f"{strict_off}; the three blocks == prob_metrics_from_counts over "
+        f"dualtask_item_counts: {got == want}; pooled (tp, fp, fn) equal to "
+        f"the cached wires': {counts_off == counts}")
+    if got != want or strict_off < 1:
+        raise AssertionError(f"assessment_semantics (cache off) printed {got}, "
+                             f"expected {want}")
     del model
 
     # the colored zoom comparison over 3 of the split's AOIs

@@ -20,6 +20,7 @@ import numpy as np
 from . import (checkpoints, evaluation, experiment_manager, metrics, parsers,
                visualization)
 from .data.dataset import MultimodalCDDataset
+from .device import resolve_device
 
 _BLOCKS = (('Change', 'change'), ('Change Sem', 'change_sem'), ('Sem', 'sem'))
 
@@ -83,19 +84,26 @@ def quantitative_assessment(cfg, run_type: str = 'validation', device=None) -> d
     """(reference assessment_semantics.py:99-152) Prints the three blocks
     and returns ``{'change'|'change_sem'|'sem': (f1, precision, recall)}``.
 
-    With the scene cache on, the pooled counts come from
-    :func:`..evaluation.dualtask_quantitative_counts` (the confusion
-    kernel's strict rule on the card, streamed over wire groups): counting
-    then summing equals pooling then counting. Without it, every scene's
-    probabilities are pooled on the host and scored with the numpy
-    ``*_from_prob`` metrics, the reference's shape."""
+    The pooled counts come from the confusion kernel's strict rule on the
+    device, per scene, summed on the host in float64: counting then
+    summing equals pooling then counting. With the scene cache on they
+    stream over wire groups
+    (:func:`..evaluation.dualtask_quantitative_counts`); without it over
+    the float32 items (:func:`..evaluation.dualtask_item_counts`). Only on
+    the CPU does the cache-disabled path take the reference's shape: every
+    scene's probabilities pooled on the host and scored with the numpy
+    ``*_from_prob`` metrics."""
     print(cfg.NAME)
+    device = resolve_device(device)
     model, _, _ = checkpoints.load_checkpoint(cfg.INFERENCE_CHECKPOINT, cfg,
                                               device=device)
     ds = _dataset(cfg, run_type)
     bucket = evaluation.eval_bucket(cfg)
     counts = evaluation.dualtask_quantitative_counts(model, ds, bucket=bucket,
                                                      device=device)
+    if counts is None and device.type != 'cpu':
+        counts = evaluation.dualtask_item_counts(model, ds, bucket=bucket,
+                                                 device=device)
     results = {}
     if counts is not None:
         for title, key in _BLOCKS:

@@ -69,9 +69,11 @@ def load_checkpoint(epoch, cfg, net_file: Path | None = None, device=None):
     epoch's :func:`checkpoint_file`. Accepts the reference's
     ``module.``-prefixed ``network`` and a bare ``state_dict``. Returns
     ``(model, optimizer, step)``. A missing file raises
-    ``FileNotFoundError``; one that ``torch.load`` or ``load_state_dict``
-    refuses raises ``ValueError`` naming the file (the JAX package's
-    contract).
+    ``FileNotFoundError``; one that ``torch.load`` refuses, or whose keys
+    or shapes the model or AdamW refuse, raises ``ValueError`` naming the
+    file (the JAX package's contract). Errors of the device while the
+    weights are copied onto it (out of memory, a CUDA fault) pass through
+    unchanged.
 
     The file is read onto the host: ``load_state_dict`` moves the weights
     and AdamW's moments to the parameters' device and leaves AdamW's step
@@ -86,11 +88,33 @@ def load_checkpoint(epoch, cfg, net_file: Path | None = None, device=None):
         ckpt = torch.load(file, map_location="cpu", weights_only=True)
         network = {k[len(_PREFIX):] if k.startswith(_PREFIX) else k: v
                    for k, v in ckpt['network'].items()}
-        model.load_state_dict(network, strict=True)
-        optimizer.load_state_dict(ckpt['optimizer'])
-        step = int(ckpt['step'])
-    except (RuntimeError, KeyError, TypeError, ValueError, EOFError,
-            pickle.UnpicklingError) as e:
-        raise ValueError(f"Corrupt or incompatible checkpoint {file}: "
-                         f"{type(e).__name__}: {e}") from e
+        _check_network(model, network)
+        optimizer_state, step = ckpt['optimizer'], int(ckpt['step'])
+    except (RuntimeError, KeyError, TypeError, ValueError, AttributeError,
+            EOFError, pickle.UnpicklingError) as e:     # all on the host
+        raise _corrupt(file, e) from e
+    model.load_state_dict(network, strict=True)
+    try:           # AdamW checks the groups before it copies onto the device
+        optimizer.load_state_dict(optimizer_state)
+    except (KeyError, TypeError, ValueError) as e:
+        raise _corrupt(file, e) from e
     return model, optimizer, step
+
+
+def _check_network(model, network: dict) -> None:
+    """Raise ``ValueError`` unless ``network`` has exactly the model's
+    state-dict keys, each tensor of the model's shape."""
+    own = model.state_dict()
+    missing, unexpected = own.keys() - network.keys(), network.keys() - own.keys()
+    if missing or unexpected:
+        raise ValueError(f"missing keys {sorted(missing)}, unexpected keys "
+                         f"{sorted(unexpected)}")
+    for key, value in network.items():
+        if tuple(value.shape) != tuple(own[key].shape):
+            raise ValueError(f"{key}: shape {tuple(value.shape)}, the model's "
+                             f"is {tuple(own[key].shape)}")
+
+
+def _corrupt(file: Path, e: Exception) -> ValueError:
+    return ValueError(f"Corrupt or incompatible checkpoint {file}: "
+                      f"{type(e).__name__}: {e}")

@@ -125,23 +125,23 @@ def _eval_wire_counts(model, x1p: np.ndarray, x2p: np.ndarray, y: np.ndarray,
                             vt.reshape(n, -1), thresholds)
 
 
-def _stream_wire_groups(ds, bucket: int, keys: tuple, run_group, accumulate,
+def _stream_wire_groups(wires, keys: tuple, run_group, accumulate,
                         group_scale: int = 1) -> None:
-    """Group ``ds.eval_wire`` wires by padded shape and dispatch a group the
-    moment it fills, with ONE group in flight: while the card runs group N
-    the host assembles group N+1, and group N's counts are fetched only
-    when group N+1 is dispatched. Tails are flushed at the end.
-    Accumulation order equals a sequential loop's. The engine behind both
-    fused eval paths (:func:`_measure_wired`,
-    :func:`dualtask_quantitative_counts`).
+    """Group ``wires`` (an iterable of eval wires, as
+    :meth:`.data.dataset.MultimodalCDDataset.eval_wire` or
+    :func:`_dualtask_item_wire` give them) by padded shape and dispatch a
+    group the moment it fills, with ONE group in flight: while the card
+    runs group N the host assembles group N+1, and group N's counts are
+    fetched only when group N+1 is dispatched. Tails are flushed at the
+    end. Accumulation order equals a sequential loop's. The engine behind
+    the fused eval paths (:func:`_measure_wired`,
+    :func:`dualtask_quantitative_counts`, :func:`dualtask_item_counts`).
 
     ``run_group(arrs)`` dispatches one stacked group (the wire's ``keys``,
-    in order; the semantic planes are assembled when ``keys`` asks for
-    them) and returns its device result; ``accumulate(result)`` fetches and
-    folds it on the host. ``group_scale`` divides
+    in order) and returns its device result; ``accumulate(result)`` fetches
+    and folds it on the host. ``group_scale`` divides
     :func:`eval_group_limit`'s memory envelope for dispatches that hold
     more live bytes per scene than the change-head forward it was set for."""
-    sem = 'ysem1' in keys
     pending: dict = {}
     inflight: list = []
 
@@ -151,8 +151,7 @@ def _stream_wire_groups(ds, bucket: int, keys: tuple, run_group, accumulate,
             accumulate(inflight.pop(0))
         inflight.append(run_group(arrs))
 
-    for i in range(len(ds)):
-        wire = ds.eval_wire(i, bucket, sem=sem)
+    for wire in wires:
         group = pending.setdefault(wire['x1'].shape, [])
         group.append(wire)
         wire_bytes = sum(v.nbytes for v in wire.values()
@@ -176,7 +175,8 @@ def _measure_wired(model, ds, measurer: MultiThresholdMetric, bucket: int,
     host accumulation of the per-scene kernel counts."""
     thr = torch.as_tensor(measurer.thresholds, device=device)
     _stream_wire_groups(
-        ds, bucket, ('x1', 'x2', 'y', 'valid'),
+        (ds.eval_wire(i, bucket) for i in range(len(ds))),
+        ('x1', 'x2', 'y', 'valid'),
         run_group=lambda arrs: _eval_wire_counts(model, *arrs, thr, device),
         accumulate=lambda counts: measurer.add_counts(
             *counts.cpu().numpy().astype(np.float64).sum(axis=0)))
@@ -333,20 +333,10 @@ def _dualtask_wire_counts(model, x1p: np.ndarray, x2p: np.ndarray,
     return torch.stack(rows, dim=1)
 
 
-def dualtask_quantitative_counts(model, ds, bucket: int = EVAL_BUCKET,
-                                 device=None) -> dict | None:
-    """Pooled strict-threshold confusion counts of the dual-task offline
-    assessment (the JAX package's ``dualtask_quantitative_counts``, behind
-    assessment_semantics.py): ``{'change'|'change_sem'|'sem': (tp, fp,
-    fn)}`` float64 over the split, the semantic counts pooled over both
-    dates; feed them to :func:`.metrics.prob_metrics_from_counts`. Scenes
-    are grouped by padded shape with one group in flight, per-scene counts
-    summed on the host in float64. None when the dataset has no wire path
-    (cache disabled or training mode): the caller then takes the item
-    path through :func:`dualtask_scene_outputs`."""
-    if getattr(ds, "supports_eval_wire", None) is None \
-            or not ds.supports_eval_wire():
-        return None
+def _pooled_dualtask_counts(model, wires, device) -> dict:
+    """Stream dual-task ``wires`` through :func:`_dualtask_wire_counts` and
+    pool the per-scene counts on the host in float64, the semantic ones
+    over both dates."""
     device = resolve_device(device)
     _check_model_device(model, device)
     totals = {k: np.zeros(3, np.float64) for k in ("change", "change_sem", "sem")}
@@ -360,7 +350,56 @@ def dualtask_quantitative_counts(model, ds, bucket: int = EVAL_BUCKET,
     # bytes per scene (a second decoder pass on each date, four probability
     # rasters), so it takes half the scenes (the JAX package's choice)
     _stream_wire_groups(
-        ds, bucket, ("x1", "x2", "y", "ysem1", "ysem2", "valid"),
+        wires, ("x1", "x2", "y", "ysem1", "ysem2", "valid"),
         run_group=lambda arrs: _dualtask_wire_counts(model, *arrs, device),
         accumulate=accumulate, group_scale=2)
     return {k: tuple(v) for k, v in totals.items()}
+
+
+def dualtask_quantitative_counts(model, ds, bucket: int = EVAL_BUCKET,
+                                 device=None) -> dict | None:
+    """Pooled strict-threshold confusion counts of the dual-task offline
+    assessment (the JAX package's ``dualtask_quantitative_counts``, behind
+    assessment_semantics.py): ``{'change'|'change_sem'|'sem': (tp, fp,
+    fn)}`` float64 over the split, the semantic counts pooled over both
+    dates; feed them to :func:`.metrics.prob_metrics_from_counts`. Scenes
+    are grouped by padded shape with one group in flight, per-scene counts
+    summed on the host in float64. None when the dataset has no wire path
+    (cache disabled or training mode): the caller then takes the item
+    path, :func:`dualtask_item_counts`."""
+    if getattr(ds, "supports_eval_wire", None) is None \
+            or not ds.supports_eval_wire():
+        return None
+    return _pooled_dualtask_counts(
+        model, (ds.eval_wire(i, bucket, sem=True) for i in range(len(ds))),
+        device)
+
+
+def _dualtask_item_wire(item: dict, bucket: int) -> dict:
+    """One full scene item in the dual-task wire layout: bucket-padded
+    float32 ``x1``/``x2`` (C, Hp, Wp) and uint8 ``y``/``ysem1``/``ysem2``
+    truth planes (``label > 0.5``) and ``valid`` plane (Hp, Wp)."""
+    x1, valid = pad_to_bucket(item["x_t1"], bucket)
+    x2, _ = pad_to_bucket(item["x_t2"], bucket)
+    h, w = item["x_t1"].shape[:2]
+    wire = {"x1": np.ascontiguousarray(x1.transpose(2, 0, 1), np.float32),
+            "x2": np.ascontiguousarray(x2.transpose(2, 0, 1), np.float32),
+            "valid": valid.astype(np.uint8)}
+    for key, label in (("y", "y_change"), ("ysem1", "y_sem_t1"),
+                       ("ysem2", "y_sem_t2")):
+        truth, _ = pad_to_bucket(np.asarray(item[label]).reshape(h, w) > 0.5,
+                                 bucket)
+        wire[key] = truth.astype(np.uint8)
+    return wire
+
+
+def dualtask_item_counts(model, ds, bucket: int = EVAL_BUCKET,
+                         device=None) -> dict:
+    """:func:`dualtask_quantitative_counts` for a dataset without the wire
+    path (scene cache off) or a list of scene items: each float32 item is
+    padded into the wire layout and counted on the device by the kernel's
+    strict variant, the counts pooled on the host in float64. Counting
+    then summing equals pooling every scene's pixels then counting, the
+    reference's protocol."""
+    return _pooled_dualtask_counts(
+        model, (_dualtask_item_wire(item, bucket) for item in ds), device)

@@ -361,6 +361,43 @@ def test_assessment_semantics_prints_the_jax_blocks(fixture_dataset, tmp_path, c
     assert _metric_lines(got) == lines
 
 
+def test_assessment_semantics_device_item_path_prints_the_jax_blocks(
+        fixture_dataset, tmp_path, capsys):
+    """Without the scene cache, off the CPU, ``assessment_semantics`` counts
+    each float32 scene item with the strict kernel
+    (``dualtask_item_counts``). Here through the kernel's plain version:
+    its blocks print as the JAX script's reference-shaped cache-disabled
+    lines; on the cached scenes its counts equal the wire path's exactly."""
+    overrides = ("DATALOADER.SCENE_CACHE", "False")
+    jout, tout = _write_checkpoints(fixture_dataset, tmp_path, "dtsiamese", overrides)
+    parser = jax_parsers.assessment_argument_parser()
+    parser.set_defaults(run_type="validation")
+    args = parser.parse_known_args(["-c", "dtsiamese", "-d", str(fixture_dataset),
+                                    "-o", str(jout)] + _opts(overrides))[0]
+    jax_assessment_semantics.quantitative_assessment(
+        jax_experiment_manager.setup_cfg(args), run_type=args.run_type)
+    want = _metric_lines(capsys.readouterr().out)
+
+    cfg = load_cfg("dtsiamese")
+    cfg.merge_from_list(_opts(overrides))
+    cfg.PATHS.DATASET, cfg.PATHS.OUTPUT = str(fixture_dataset), str(tout)
+    model, _, _ = checkpoints.load_checkpoint(1, cfg, device="cpu")
+    ds = assessment_semantics._dataset(cfg, "validation")
+    assert evaluation.dualtask_quantitative_counts(model, ds, device="cpu") is None
+    counts = evaluation.dualtask_item_counts(model, ds, device="cpu")
+    for title, key in assessment_semantics._BLOCKS:
+        assessment_semantics._print_block(
+            title, *metrics.prob_metrics_from_counts(*counts[key]))
+    assert _metric_lines(capsys.readouterr().out) == want and len(want) == 6
+    assert "F1 score: 0.000" not in "".join(want)             # not vacuous
+
+    # the cached scenes as items count as their wires do
+    cfg.DATALOADER.SCENE_CACHE = True
+    cached = assessment_semantics._dataset(cfg, "validation")
+    assert evaluation.dualtask_item_counts(model, list(cached), device="cpu") == \
+        evaluation.dualtask_quantitative_counts(model, cached, device="cpu")
+
+
 def test_qualitative_comparison_pixels_match_jax(fixture_dataset, tmp_path, monkeypatch):
     """The colored zoom figure and the plain one: the same PNG as the JAX
     script's on the same weights, pixel for pixel, except where a change
@@ -515,6 +552,23 @@ def test_load_checkpoint_net_file_and_corrupt_files(fixture_dataset, tmp_path):
         checkpoints.load_checkpoint(1, cfg, net_file=other, device="cpu")
     with pytest.raises(FileNotFoundError):
         checkpoints.load_checkpoint(5, cfg, device="cpu")
+    shapes = tmp_path / "shapes.pt"        # the model's keys, one wrong shape
+    ckpt = torch.load(src, weights_only=True)
+    key = next(iter(ckpt["network"]))
+    ckpt["network"][key] = torch.zeros(3)
+    torch.save(ckpt, shapes)
+    with pytest.raises(ValueError, match=f"shapes.pt.*{key[len('module.'):]}: shape"):
+        checkpoints.load_checkpoint(1, cfg, net_file=shapes, device="cpu")
+
+    # a device's failure while a sound file is copied onto it is not a
+    # corrupt checkpoint
+    def out_of_memory(*args, **kwargs):
+        raise torch.OutOfMemoryError("CUDA out of memory")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.nn.Module, "load_state_dict", out_of_memory)
+        with pytest.raises(torch.OutOfMemoryError):
+            checkpoints.load_checkpoint(1, cfg, device="cpu")
 
 
 def test_cli_entry_points_default_to_the_card(fixture_dataset, tmp_path):
