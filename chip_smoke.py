@@ -24,6 +24,8 @@ script exits non-zero:
           launch from CUDA graphs (:func:`bn_kernel_times`, as phase 8a
           times it), and beside it the one PyTorch call that computes the
           same sums (``torch.batch_norm_backward_reduce``), as a yardstick;
+          then its time and bound share at every BatchNorm shape of the
+          step;
        c. conv3x3, the op's own path (no model calls it): at the JAX test's
           shape, the Pallas tool's shape, every U-Net level at batch 8 and
           256^2 crops and a ragged shape, bf16 and f32, against the plain
@@ -82,7 +84,23 @@ script exits non-zero:
      equal to ``dualtask_item_counts``), the colored zoom
      comparison over 3 AOIs, ``sanity_check`` for 2 samples, and
      ``preprocessing`` on a hard-linked copy of the split (its
-     metadata.json equal to the split's).
+     metadata.json equal to the split's);
+  9. a. serving: phase 5's checkpoint exported through ``export_serving.
+     main`` for the card (buckets 256, 512, 1024; batch sizes 1 and 8),
+     loaded in process, ``predict`` on each of the 20 scenes held bit for
+     bit against ``evaluation.scene_probabilities`` on the same checkpoint,
+     ``predict_batch`` on the 20 scenes and two 256^2 crops against
+     ``predict`` (limit ``SERVE_BATCH_LIMIT``) and its first chunk of 8 bit
+     for bit against ``eval_forward`` on the same padded scenes; bundle
+     size, export time, scenes/s, peak memory;
+     b. the training knobs: one staged full-width siameseunet step at batch
+     8 in each of plain, GRAD_ACCUM 2, REMAT and both (bn_stats launches 56
+     / 112 / 84 / 168, held against the plain version as in phase 7; REMAT's
+     running statistics and ``num_batches_tracked`` equal to the plain
+     step's), step time and peak memory, then plain and REMAT at batch 32;
+     c. ``trainers.run_training`` with GRAD_ACCUM 2, process loader workers
+     and PROFILE_DIR (16 steps): finite window losses, a trace file, and the
+     process batches equal to a thread loader's.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports only the port,
@@ -92,6 +110,7 @@ torch, numpy and the standard library.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -109,10 +128,11 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_siamese_cd_tpu_torch import (assessment_change, assessment_semantics,
-                                             checkpoints, evaluation, geofiles,
-                                             metrics, png, preprocessing,
+                                             checkpoints, evaluation, export_serving,
+                                             geofiles, metrics, png, preprocessing,
                                              qualitative_comparison, sanity_check,
-                                             train_lib, trainers, wandb_compat)
+                                             serving, train_lib, trainers,
+                                             wandb_compat)
 from multimodal_siamese_cd_tpu_torch.config import load_cfg
 from multimodal_siamese_cd_tpu_torch.data.dataset import MultimodalCDDataset
 from multimodal_siamese_cd_tpu_torch.data.loader import TrainLoader, prefetch_to_device
@@ -168,6 +188,15 @@ CONV_MAIN = (8, 256, 256, 64, 64)
 # phase 3c timing: launches per CUDA graph, rounds of (kernel, cuDNN, cuDNN,
 # kernel) replays, host calls of the wrapper timed on the host clock
 CONV_INNER, CONV_ROUNDS, CONV_HOST_CALLS = 20, 5, 50
+# phase 9a: the serving export's buckets and batch sizes; the limit of
+# predict_batch (batch 8) against predict (batch 1), phase 4's group limit
+SERVE_BUCKETS, SERVE_BATCHES, SERVE_BATCH_LIMIT = "256,512,1024", "1,8", 2e-2
+# phase 9b: (label, GRAD_ACCUM, REMAT) of the staged steps
+KNOB_MODES = (("plain", 1, False), ("GRAD_ACCUM 2", 2, False),
+              ("REMAT", 1, True), ("GRAD_ACCUM 2 + REMAT", 2, True))
+# phase 9c: 8 AOIs x 16 = 128 crops = 16 steps of 8 (past the profiler's
+# start at step 10), two LOG_FREQ windows of 8
+KNOB_MULTIPLIER, KNOB_LOG_FREQ = 16, 8
 
 
 def log(*args) -> None:
@@ -521,6 +550,19 @@ def phase_bn_stats(card: dict) -> dict:
         f"reduce {library_ms * 1e3:.1f} us ({lib_note}; max |diff| vs kernel "
         f"{lib_diff:.3e})")
     del dy, x, lib, got, lib_out
+    torch.cuda.empty_cache()
+    log(f"bn_stats per launch at every BatchNorm shape of a full-width siameseunet "
+        f"step (batch 8, bf16; CUDA graphs of 20 launches, median of 5 rounds) on "
+        f"{card['smi']}:")
+    for shape in BN_SHAPES:
+        ts = t if shape == BN_SHAPES[0] else bn_kernel_times(
+            card, torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16))
+        log(f"  {shape}: backward {ts['back_ms'] * 1e3:.2f} us (bound "
+            f"{ts['back_bound'] * 1e3:.2f} us by {ts['back_by']}, "
+            f"{ts['back_bound'] / ts['back_ms'] * 100:.1f}%), forward "
+            f"{ts['fwd_ms'] * 1e3:.2f} us (bound {ts['fwd_bound'] * 1e3:.2f} us, "
+            f"{ts['fwd_bound'] / ts['fwd_ms'] * 100:.1f}%)")
     torch.cuda.empty_cache()
     return {"name": "bn_stats", "route": "cuda",
             "source": "multimodal_siamese_cd_tpu_torch/ops/csrc/bn_stats.cu",
@@ -1288,12 +1330,11 @@ def _keepers() -> tuple:
     return bn_seen, conf_calls, keep_bn, keep_conf
 
 
-def _check_path_launches(rows: dict, dev: torch.device, bn_seen: dict,
-                         conf_calls: list, path: str = "semi-supervised") -> None:
-    """The path's own kernel outputs against the plain versions on the same
-    inputs: bn_stats at the first launch of every (shape, dtype, a is b)
-    the run gave it (float64 plain, the limit of phase 3b, and a relaunch
-    bit-equal), and every rounding-rule confusion launch (exact)."""
+def _check_bn_launches(rows: dict, dev: torch.device, bn_seen: dict,
+                       path: str) -> tuple:
+    """bn_stats at the first launch of every (shape, dtype, a is b) a path
+    gave it against the plain version in float64 (the limit of phase 3b),
+    and a relaunch bit-equal; returns (worst ratio, max |kernel - ref|)."""
     worst, err = 0.0, 0.0
     for (shape, dtype, same), (a, b, got) in bn_seen.items():
         a = a.to(dev)
@@ -1309,6 +1350,17 @@ def _check_path_launches(rows: dict, dev: torch.device, bn_seen: dict,
                                  f"{shape} {dtype} same={same}: error ratio "
                                  f"{ratio:.3g} (limit 1), bit-equal {bitwise}")
     rows["bn_stats"]["max_abs_err"] = max(rows["bn_stats"]["max_abs_err"], err)
+    if not bn_seen:
+        raise AssertionError(f"no bn_stats launch of the {path} path was kept")
+    return worst, err
+
+
+def _check_path_launches(rows: dict, dev: torch.device, bn_seen: dict,
+                         conf_calls: list, path: str = "semi-supervised") -> None:
+    """The path's own kernel outputs against the plain versions on the same
+    inputs: bn_stats as :func:`_check_bn_launches` holds them, and every
+    rounding-rule confusion launch (exact)."""
+    worst, err = _check_bn_launches(rows, dev, bn_seen, path)
     conf_err = 0
     for args, got in conf_calls:
         args = tuple(t.to(dev) for t in args)
@@ -1321,7 +1373,7 @@ def _check_path_launches(rows: dict, dev: torch.device, bn_seen: dict,
         f"{err:.3e}); its {len(conf_calls)} confusion launches: max |kernel - "
         f"plain| {conf_err} on {sum(int(a[0].numel()) for a, _ in conf_calls)} "
         f"probabilities")
-    if not bn_seen or not conf_calls or conf_err != 0:
+    if not conf_calls or conf_err != 0:
         raise AssertionError(f"the {path} path's confusion counts != plain, "
                              f"or no launch was kept")
 
@@ -1770,6 +1822,257 @@ def phase_clis(dev: torch.device, root: Path, aois: list) -> None:
     log(f"offline CLIs: {time.perf_counter() - t_start:.1f} s wall, checks included")
 
 
+# -- phase 9 ------------------------------------------------------------------
+
+def phase_serving(card: dict, dev: torch.device, root: Path, aois: list) -> None:
+    """9a: phase 5's checkpoint exported through ``export_serving.main`` for
+    the card, loaded, and every served map held against
+    ``evaluation.scene_probabilities`` on the same checkpoint and scene."""
+    train_out = root / "train_out"
+    dest = root / "serving" / "siamese_serving.zip"
+    argv = (["-c", "siamese", "-p", "smoke", "-o", str(train_out), "-d", str(root),
+             "--dest", str(dest), "--buckets", SERVE_BUCKETS, "--platforms", "cuda",
+             "--batch-sizes", SERVE_BATCHES, "--device", dev.type]
+            + _split_opts(aois, aois))
+    _, path, export_s = _run_cli("export_serving", export_serving.main, argv)
+    t0 = time.perf_counter()
+    served = serving.load_serving_bundle(path)          # the card: device=None
+    load_s = time.perf_counter() - t0
+    log(f"serving bundle {path.name}: {path.stat().st_size / 1e6:.1f} MB, exported "
+        f"in {export_s:.2f} s ({len(served.buckets)} buckets x batch sizes "
+        f"{served.batch_sizes}, platform {served.platform}, compute "
+        f"{served.meta['compute_dtype'][served.platform]}), loaded in {load_s:.2f} s")
+
+    cfg = _train_cfg(root, train_out, aois)
+    cfg.DATASET.TEST_IDS = aois
+    model, _, _ = checkpoints.load_checkpoint(1, cfg, device=dev)
+    ds = MultimodalCDDataset(cfg, "test", no_augmentations=True,
+                             dataset_mode="first_last", disable_multiplier=True,
+                             disable_unlabeled=True)
+    items = [ds[i] for i in range(len(ds))]
+    want = [evaluation.scene_probabilities(model, it, device=dev) for it in items]
+    # the first batch-8 chunk of predict_batch below (the scenes share one
+    # square bucket), through eval_forward
+    side = served._bucket_for(*items[0]["x_t1"].shape[:2])[0]
+    padded = [[evaluation.pad_to_bucket(it[k], side)[0] for it in items[:8]]
+              for k in ("x_t1", "x_t2")]
+    want8 = eval_forward(model, *(evaluation._nchw(np.stack(p), dev) for p in padded))
+    want8 = [want8[j, 0, :it["x_t1"].shape[0], :it["x_t1"].shape[1]].cpu().numpy()
+             for j, it in enumerate(items[:8])]
+    del model, padded
+    torch.cuda.empty_cache()
+
+    served.predict(items[0]["x_t1"], items[0]["x_t2"])   # loads the artifact
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = [served.predict(it["x_t1"], it["x_t2"]) for it in items]
+    predict_s = time.perf_counter() - t0
+    peak_predict = torch.cuda.max_memory_allocated()
+    diff = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    equal = all(g.shape == w.shape and np.array_equal(g, w) for g, w in zip(got, want))
+    buckets = sorted({served._bucket_for(*it["x_t1"].shape[:2]) for it in items})
+    log(f"  predict over {len(items)} scenes (~{AOI_SIDE}^2, buckets {buckets}, batch 1): "
+        f"{len(items) / predict_s:.2f} scenes/s (host clock), peak device memory "
+        f"{peak_predict / 2**30:.2f} GiB; == scene_probabilities bit for bit: "
+        f"{equal} (max |dp| {diff:.3e})")
+
+    rng = np.random.default_rng(9)
+    crops = [tuple(rng.uniform(0, 1, (256, 256, served.meta["in_channels"]))
+                   .astype(np.float32) for _ in range(2)) for _ in range(2)]
+    pairs = [(it["x_t1"], it["x_t2"]) for it in items] + crops
+    served.predict_batch(pairs[:2] + crops)       # loads the batch-8 artifacts
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batched = served.predict_batch(pairs)
+    batch_s = time.perf_counter() - t0
+    peak_batch = torch.cuda.max_memory_allocated()
+    single = got + [served.predict(*c) for c in crops]
+    bdiff = max(float(np.abs(b - p).max()) for b, p in zip(batched, single))
+    bequal = all(np.array_equal(b, p) for b, p in zip(batched, single))
+    equal8 = all(np.array_equal(b, w) for b, w in zip(batched[:8], want8))
+    log(f"  predict_batch over {len(pairs)} pairs ({len(items)} scenes in chunks of "
+        f"up to 8 and two 256^2 crops, each chunk through the batch-8 artifact): "
+        f"{len(pairs) / batch_s:.2f} pairs/s (host clock), peak device memory "
+        f"{peak_batch / 2**30:.2f} GiB; == predict bit for bit: {bequal} (max "
+        f"|dp| {bdiff:.3e}; limit {SERVE_BATCH_LIMIT:g}: another batch size may "
+        f"take other cuDNN bf16 algorithms, as phase 4's group does); its first "
+        f"chunk == eval_forward on the same 8 padded scenes bit for bit: {equal8}")
+    if not equal or not equal8:
+        raise AssertionError(f"served maps differ from the eval forward's (batch "
+                             f"1: up to {diff:.3e}; batch 8 equal: {equal8})")
+    if not all(b.shape == p.shape and np.isfinite(b).all()
+               for b, p in zip(batched, single)) or bdiff > SERVE_BATCH_LIMIT:
+        raise AssertionError(f"predict_batch differs from predict by {bdiff:.3e}")
+    del served, items, want, want8, got, batched, single
+    torch.cuda.empty_cache()
+
+
+def _knob_step(rows: dict, dev: torch.device, cfg, batch: dict, state: dict,
+               accum: int, remat: bool) -> tuple:
+    """One staged supervised step from ``state`` with ``TRAINER.GRAD_ACCUM
+    accum`` and ``MODEL.REMAT remat``, its bn_stats launches counted and
+    held against the plain version (:func:`_watch`); then three more timed
+    with CUDA events, the peak device memory around them. Returns (launches,
+    the running statistics after the counted step, ms, peak bytes)."""
+    cfg = cfg.clone()
+    cfg.TRAINER.GRAD_ACCUM = accum
+    cfg.MODEL.REMAT = remat
+    model = create_network(cfg, device=dev)
+    model.load_state_dict(state)
+    step_fn = train_lib.make_supervised_train_step(
+        model, train_lib.make_optimizer(model, cfg), cfg)
+    bn_seen, _, keep_bn, _ = _keepers()
+    with _watch(batchnorm, "bn_stats", keep_bn):
+        # ---- one step of the path, with the launch count around it ----
+        torch.cuda.synchronize()
+        _reset_counts()
+        step_fn(batch["stack"], batch["is_labeled"], 0)
+        torch.cuda.synchronize()
+        launches = bn_stats.bn_stats.launches
+        # -----------------------------------------------------------------
+    buffers = {k: v.clone() for k, v in model.state_dict().items()
+               if k.rsplit(".", 1)[-1] in ("running_mean", "running_var",
+                                           "num_batches_tracked")}
+    _check_bn_launches(rows, dev, bn_seen, f"accum {accum} remat {remat}")
+    del bn_seen
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"], 1),
+                      runs=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    del model, step_fn
+    torch.cuda.empty_cache()
+    return launches, buffers, ms, peak
+
+
+def phase_knobs(card: dict, rows: dict, dev: torch.device, root: Path,
+                aois: list) -> int:
+    """9b: one staged full-width siameseunet step in each knob mode at batch
+    8, then plain and REMAT at batch 32; returns the path's bn_stats
+    launches."""
+    cfg = _train_cfg(root, root / "unused", aois)
+    init = create_network(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(cfg.SEED))
+    state = {k: v.clone() for k, v in init.state_dict().items()}
+    del init
+    per_step = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)
+    total = 0
+    for batch_size, modes in ((8, KNOB_MODES), (32, KNOB_MODES[::2])):
+        loader = TrainLoader(MultimodalCDDataset(cfg, "training"), batch_size,
+                             num_workers=0, seed=1)
+        batch = next(prefetch_to_device(loader, dev))
+        plain = None
+        for label, accum, remat in modes:
+            launches, buffers, ms, peak = _knob_step(rows, dev, cfg, batch, state,
+                                                     accum, remat)
+            expect = per_step * accum * (3 if remat else 2) // 2
+            total += launches
+            same = None        # REMAT's buffers against the plain step's
+            if plain is None:
+                plain = buffers
+            elif accum == 1:
+                same = all(torch.equal(v, plain[k]) for k, v in buffers.items())
+            log(f"  {label} at batch {batch_size} (micro-batch {batch_size // accum}"
+                f"): {ms:.1f} ms per step (CUDA events, median of 3) = "
+                f"{batch_size / ms * 1e3:.2f} patches/s of device time, peak "
+                f"device memory {peak / 2**30:.2f} GiB, bn_stats launches "
+                f"{launches} (expected {expect})"
+                + ("" if same is None else
+                   f"; running statistics == plain's bit for bit: {same}"))
+            if launches != expect or same is False:
+                raise AssertionError(f"knob mode {label} at batch {batch_size}: "
+                                     f"{launches} launches or running statistics "
+                                     f"off the plain step's")
+        del batch, loader
+        torch.cuda.empty_cache()
+    return total
+
+
+@contextlib.contextmanager
+def _batch_digests(digests: list, arrivals: list):
+    """Record a digest of every batch the trainer's loader hands to
+    ``prefetch_to_device`` (its stack bytes and label mask) and the host
+    clock when it arrived."""
+    wrapped = trainers.prefetch_to_device
+
+    def spy(iterator, device):
+        def recorded():
+            for batch in iterator:
+                arrivals.append(time.perf_counter())
+                digests.append(_digest(batch))
+                yield batch
+        return wrapped(recorded(), device)
+
+    trainers.prefetch_to_device = spy
+    try:
+        yield
+    finally:
+        trainers.prefetch_to_device = wrapped
+
+
+def _digest(batch: dict) -> str:
+    h = hashlib.sha256(batch["stack"].tobytes())
+    h.update(batch["is_labeled"].tobytes())
+    return h.hexdigest()
+
+
+def phase_knob_run(card: dict, rows: dict, dev: torch.device, root: Path,
+                   aois: list) -> int:
+    """9c: ``trainers.run_training`` with GRAD_ACCUM 2, process loader
+    workers and PROFILE_DIR; returns its bn_stats launches."""
+    out, prof = root / "knob_out", root / "knob_profile"
+    out.mkdir()
+    cfg = _train_cfg(root, out, aois)
+    cfg.DATALOADER.TRAINING_MULTIPLIER = KNOB_MULTIPLIER
+    cfg.LOG_FREQ = KNOB_LOG_FREQ
+    cfg.SAVE_CHECKPOINTS = []
+    cfg.TRAINER.GRAD_ACCUM = 2
+    cfg.DATALOADER.WORKER_TYPE = "process"
+    cfg.TRAINER.PROFILE_DIR = str(prof)
+    digests, arrivals = [], []
+    wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl", out_dir=out)
+    try:
+        with _batch_digests(digests, arrivals):
+            # ---- the run, with the kernels' launch counts around it ----
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            trainers.run_training(cfg, "supervised", device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            bn_launches, conf_launches, _ = _counts()
+            # ------------------------------------------------------------
+    finally:
+        wandb_compat.finish()
+    rows["confusion_counts"]["launches"] += conf_launches
+    windows = [r for r in _records(out, cfg.NAME) if "train_time" in r]
+    steps = windows[-1]["step"] if windows else 0
+    expect = 2 * 2 * bn_per_step(cfg.MODEL.TOPOLOGY)     # two micro-batches
+    traces = sorted(prof.glob("*.json"))
+    thread_loader = TrainLoader(MultimodalCDDataset(cfg, "training"),
+                                cfg.TRAINER.BATCH_SIZE, shuffle=cfg.DATALOADER.SHUFFLE,
+                                num_workers=cfg.DATALOADER.NUM_WORKER, seed=cfg.SEED)
+    threads = [_digest(b) for b in thread_loader]
+    log(f"run_training, GRAD_ACCUM 2, {cfg.DATALOADER.NUM_WORKER} process loader "
+        f"workers, PROFILE_DIR: {steps} steps in {wall:.1f} s wall (with its "
+        f"evals; the first batch came {arrivals[0] - t0:.2f} s after the start, "
+        f"the pool's start-up), bn_stats launches {bn_launches} "
+        f"({bn_launches / max(steps, 1):g} "
+        f"per step, expected {expect}), confusion {conf_launches}; window losses "
+        + ", ".join(f"{r['loss']:.6f}" for r in windows)
+        + f"; trace {[f'{t.name} ({t.stat().st_size / 1e6:.1f} MB)' for t in traces]}; "
+        f"{len(digests)} process batches == the thread loader's {len(threads)}: "
+        f"{digests == threads}")
+    if (steps != TRAIN_AOIS * KNOB_MULTIPLIER // cfg.TRAINER.BATCH_SIZE
+            or bn_launches != expect * steps or conf_launches < 1
+            or not all(np.isfinite(r["loss"]) for r in windows)
+            or len(traces) != 1 or digests != threads):
+        raise AssertionError("the knob run: wrong step or launch count, a "
+                             "non-finite loss, no trace, or process batches "
+                             "other than the thread loader's")
+    return bn_launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -1789,6 +2092,15 @@ def main() -> None:
         phase_semisup(card, rows, dev, root, aois)
         phase_siamunet_diff(card, rows, dev, root, aois)
         phase_clis(dev, root, aois)
+        t9a = time.perf_counter()
+        phase_serving(card, dev, root, aois)
+        t9b = time.perf_counter()
+        rows["bn_stats"]["launches"] += phase_knobs(card, rows, dev, root, aois)
+        t9c = time.perf_counter()
+        rows["bn_stats"]["launches"] += phase_knob_run(card, rows, dev, root, aois)
+        t9 = time.perf_counter()
+        log(f"phase 9: {t9 - t9a:.1f} s wall, checks included (9a {t9b - t9a:.1f} "
+            f"s, 9b {t9c - t9b:.1f} s, 9c {t9 - t9c:.1f} s)")
     finally:
         tmp.cleanup()
     log(f"kernels: {json.dumps(list(rows))}; chip_smoke wall "

@@ -20,7 +20,11 @@ and ``dtsiameseunet``:
   counts come from the confusion kernel's strict variant;
 * the 3x3 SAME convolution op ``ops.conv3x3`` (CUDA kernel
   ``ops/csrc/conv3x3.cu``), the counterpart of the JAX package's Pallas
-  probe; no model calls it, in either package.
+  probe; no model calls it, in either package;
+* serving — ``serving`` (``torch.export`` bundles, ``ServingModel``) and
+  the ``export_serving`` CLI — and the single-device training knobs
+  (``TRAINER.GRAD_ACCUM``, ``MODEL.REMAT``, ``TRAINER.PROFILE_DIR``,
+  ``DATALOADER.WORKER_TYPE process``).
 
 Entry points run on the card unless ``device="cpu"`` is passed.
 """

@@ -30,22 +30,23 @@ _SCI_NOTATION = re.compile(r"^[+-]?(\d+(\.\d*)?|\.\d+)[eE][+-]?\d+$")
 # Knobs beyond the reference's config surface. CLI overrides may set these
 # even though no shipped YAML declares them; every other unknown key is
 # rejected like the reference's yacs does. The set is the JAX package's, so
-# one override list drives both packages; knobs this package does not read
-# yet are accepted and ignored.
+# one override list drives both packages. Each key works, raises, or is
+# printed as a declared no-op when the trainer starts
+# (trainers.declare_knobs); none is accepted silently.
 EXTENSION_KEYS = frozenset({
-    "MODEL.BN_AXIS_NAME",
-    "MODEL.PACKED_FULLRES",        # accepted, ignored: a TPU layout trick
-    "MODEL.REMAT",
-    "MODEL.SYNC_BN",
+    "MODEL.BN_AXIS_NAME",          # declared no-op: one device
+    "MODEL.PACKED_FULLRES",        # declared no-op: a TPU layout trick
+    "MODEL.REMAT",                 # blocks.py: checkpointed stages
+    "MODEL.SYNC_BN",               # declared no-op: one BatchNorm group
     "TRAINER.PRECISION",           # factory.py: bf16/fp32 compute dtype
-    "TRAINER.GRAD_ACCUM",
-    "TRAINER.SPATIAL_SHARDS",
-    "TRAINER.STEPS_PER_EXECUTION",
+    "TRAINER.GRAD_ACCUM",          # train_lib.py: micro-batches
+    "TRAINER.SPATIAL_SHARDS",      # > 1: the data-parallel fall-back warning
+    "TRAINER.STEPS_PER_EXECUTION", # declared no-op: runs as 1
     "TRAINER.EVAL_PAD_MULTIPLE",   # evaluation.py: eval bucket granularity
-    "TRAINER.PROFILE_DIR",
-    "TRAINER.RESUME_CHECKPOINT",
-    "TRAINER.WEDGE_TIMEOUT",
-    "DATALOADER.WORKER_TYPE",
+    "TRAINER.PROFILE_DIR",         # trainers.py: torch.profiler trace
+    "TRAINER.RESUME_CHECKPOINT",   # trainers.py: resume
+    "TRAINER.WEDGE_TIMEOUT",       # declared no-op: a TPU dispatch probe
+    "DATALOADER.WORKER_TYPE",      # loader.py: thread or process workers
     "DATALOADER.SCENE_CACHE",      # cache.py: packed scene cache on/off
     "DATALOADER.CACHE_DIR",        # cache.py: cache location override
     "DATALOADER.CACHE_DTYPE",      # cache.py: packed imagery dtype

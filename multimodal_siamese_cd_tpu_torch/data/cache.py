@@ -54,6 +54,13 @@ class SceneCache:
         self.cache_dir = Path(cache_dir) if cache_dir else self.root / ".cache_torch"
         self._open: dict[tuple, tuple[np.ndarray, dict]] = {}
 
+    def __getstate__(self) -> dict:
+        """Pickled without the open memmaps (a process loader worker reopens
+        them itself instead of receiving copies of the arrays)."""
+        state = dict(self.__dict__)
+        state["_open"] = {}
+        return state
+
     # -- raw decode (identical semantics to reference datasets.py:30-52) ----
     def _tif_path(self, aoi_id: str, modality: str, year: int, month: int) -> Path:
         return (self.root / aoi_id / modality /

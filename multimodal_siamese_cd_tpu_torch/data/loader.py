@@ -1,13 +1,16 @@
-"""Batch loading with threaded prefetch and staging onto the card (the JAX
+"""Batch loading with worker prefetch and staging onto the card (the JAX
 package's ``data/loader.py``).
 
-* Worker threads build whole batches ahead of the consumer; the per-sample
-  work is numpy slicing out of the memmapped scene cache, which releases
-  the GIL.
-* Randomness is independent of the thread schedule: the epoch's shuffle
+* Workers build whole batches ahead of the consumer: threads by default
+  (the per-sample work is numpy slicing out of the memmapped scene cache,
+  which releases the GIL), or processes (``DATALOADER.WORKER_TYPE
+  process``), which sidestep the GIL at the cost of pickling each batch
+  back.
+* Randomness is independent of the worker schedule: the epoch's shuffle
   and each batch's crop draws come from ``np.random.SeedSequence([seed,
   epoch])`` and ``SeedSequence([seed, epoch, batch])`` spawns, the JAX
-  package's schedule, so one seed gives both packages the same batches.
+  package's schedule, so one seed gives both packages, and both worker
+  types, the same batches.
 * :func:`prefetch_to_device` copies each batch through pinned host memory
   with ``non_blocking=True`` on a side stream, and the consumer's stream
   waits on an event recorded after the copy.
@@ -15,10 +18,11 @@ package's ``data/loader.py``).
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -65,28 +69,47 @@ def _assemble_batch(dataset, seed: int, epoch: int, batch_idx: int,
     return batch
 
 
+# the dataset of a process worker, installed once by the pool's initializer
+_WORKER_STATE: dict = {}
+
+
+def _init_worker(dataset, seed: int) -> None:
+    _WORKER_STATE["dataset"] = dataset
+    _WORKER_STATE["seed"] = seed
+
+
+def _assemble_in_worker(epoch: int, batch_idx: int, indices) -> dict:
+    return _assemble_batch(_WORKER_STATE["dataset"], _WORKER_STATE["seed"],
+                           epoch, batch_idx, indices)
+
+
 class TrainLoader:
     """Epoch iterator over a training dataset, yielding collated numpy
     batches: the reference trainer's DataLoader contract (``shuffle`` per
     epoch, ``drop_last=True``, ``len()`` = full batches per epoch).
     ``num_workers=0`` builds batches in the caller's thread (the DEBUG
-    path)."""
+    path).
+
+    ``worker_type="process"`` builds them in a pool of processes that lives
+    until :meth:`close`: started by ``forkserver`` (``spawn`` where that is
+    missing), never ``fork``, because torch's and CUDA's threads are live
+    by then; each worker receives the dataset once, from the pool's
+    initializer. A pool that fails to start raises when its first batch is
+    read; there is no fall-back to threads."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 2, seed: int = 0,
                  worker_type: str = "thread"):
-        if worker_type == "process":
-            raise NotImplementedError(
-                "DATALOADER.WORKER_TYPE process is not yet ported; use "
-                "thread (the default)")
-        if worker_type != "thread":
+        if worker_type not in ("thread", "process"):
             raise ValueError(f"worker_type must be thread|process, got {worker_type!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = min(max(0, int(num_workers)), os.cpu_count() or 1)
         self.seed = seed
+        self.worker_type = worker_type
         self._epoch = 0
+        self._processes = None
 
     def set_epoch(self, epoch: int) -> None:
         """Set the epoch counter that seeds the next epoch's shuffle and
@@ -115,28 +138,56 @@ class TrainLoader:
                 yield _assemble_batch(self.dataset, self.seed, epoch, b, idxs)
             return
 
-        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        if self.worker_type == "thread":
+            pool = ThreadPoolExecutor(max_workers=self.num_workers)
+
+            def submit(b):
+                return pool.submit(_assemble_batch, self.dataset, self.seed,
+                                   epoch, b, batches[b])
+        else:
+            pool = self._process_pool()
+
+            def submit(b):
+                return pool.submit(_assemble_in_worker, epoch, b, batches[b])
+
         futures = []
         try:
             window = self.num_workers + _LOOKAHEAD
             for b in range(min(window, len(batches))):
-                futures.append(pool.submit(_assemble_batch, self.dataset,
-                                           self.seed, epoch, b, batches[b]))
+                futures.append(submit(b))
             for done in range(len(batches)):
                 batch = futures[done].result()
                 # a Future keeps its result: drop it so the epoch's batches
                 # are not all pinned in memory
                 futures[done] = None
-                nxt = len(futures)
-                if nxt < len(batches):
-                    futures.append(pool.submit(_assemble_batch, self.dataset,
-                                               self.seed, epoch, nxt,
-                                               batches[nxt]))
+                if len(futures) < len(batches):
+                    futures.append(submit(len(futures)))
                 yield batch
         finally:
             # an abandoned epoch (exception, DEBUG break) leaves no queued
-            # batch builds running
-            pool.shutdown(wait=False, cancel_futures=True)
+            # batch builds running; the process pool itself lives on
+            if self.worker_type == "thread":
+                pool.shutdown(wait=False, cancel_futures=True)
+            else:
+                for f in futures:
+                    if f is not None:
+                        f.cancel()
+
+    def _process_pool(self) -> ProcessPoolExecutor:
+        if self._processes is None:
+            methods = multiprocessing.get_all_start_methods()
+            ctx = multiprocessing.get_context(
+                "forkserver" if "forkserver" in methods else "spawn")
+            self._processes = ProcessPoolExecutor(
+                max_workers=self.num_workers, mp_context=ctx,
+                initializer=_init_worker, initargs=(self.dataset, self.seed))
+        return self._processes
+
+    def close(self) -> None:
+        """Stop the process pool's workers (nothing to do for threads)."""
+        if self._processes is not None:
+            self._processes.shutdown(wait=True, cancel_futures=True)
+            self._processes = None
 
 
 def prefetch_to_device(iterator: Iterable[dict], device):

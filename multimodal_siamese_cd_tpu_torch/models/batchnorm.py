@@ -21,7 +21,11 @@ grammar and :func:`..weights.state_dict_from_jax` are unchanged.
 The forward sums come from ``bn_stats(x, x)``, the backward's from
 ``bn_stats(dy, x)``; on the card both launch the CUDA kernel. A module
 called twice in one step (the Siamese encoder runs on both dates) updates
-its running statistics twice, in call order, as flax does.
+its running statistics twice, in call order, as flax does. While
+``recomputing`` is set (the backward's second forward of a checkpointed
+stage, ``MODEL.REMAT``) the module normalises as before but leaves
+``running_mean``, ``running_var`` and ``num_batches_tracked`` alone, so a
+step moves them once, as the plain step does.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ class _TrainBatchNorm(torch.autograd.Function):
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps):
+        """``running_mean`` / ``running_var`` None: no running update."""
         x = x.contiguous()
         n = x.numel() // x.shape[1]
         s1, s2 = bn_stats(x, x)
@@ -53,9 +58,10 @@ class _TrainBatchNorm(torch.autograd.Function):
         y = x.to(torch.float32, copy=True)
         y.sub_(_per_channel(mean)).mul_(_per_channel(rstd * weight))
         y.add_(_per_channel(bias))
-        with torch.no_grad():
-            running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
-            running_var.mul_(1.0 - momentum).add_(var, alpha=momentum)
+        if running_mean is not None:
+            with torch.no_grad():
+                running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
+                running_var.mul_(1.0 - momentum).add_(var, alpha=momentum)
         ctx.save_for_backward(x, weight, mean, rstd)
         ctx.n = n
         return y.to(x.dtype)
@@ -94,11 +100,15 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self.recomputing = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.recomputing:
+            return _TrainBatchNorm.apply(x, self.weight, self.bias, None, None,
+                                         self.momentum, self.eps)
         self.num_batches_tracked.add_(1)
         return _TrainBatchNorm.apply(x, self.weight, self.bias,
                                      self.running_mean, self.running_var,

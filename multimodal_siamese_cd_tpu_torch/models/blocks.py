@@ -17,17 +17,65 @@ of weights drives the reference, this package and (through
 BatchNorm is :class:`.batchnorm.BatchNorm2d` (eps 1e-5, torch momentum 0.1
 == flax momentum 0.9): ``nn.BatchNorm2d``'s names and eval mode, flax's
 training semantics, its statistics through the ``bn_stats`` kernel.
+
+``MODEL.REMAT`` (:func:`set_remat`) checkpoints every stem, Down and Up
+stage, the stages the JAX package wraps in ``nn.remat`` (its blocks.py:197,
+:227, networks.py:55-59).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .batchnorm import BatchNorm2d
+
+
+class _Stage(nn.Module):
+    """A U-Net stage that ``MODEL.REMAT`` may checkpoint: in train mode with
+    ``remat`` set, ``forward`` keeps only the stage's inputs, and the
+    backward runs :meth:`stage` again to rebuild its activations
+    (``torch.utils.checkpoint``, non-reentrant). The second forward runs
+    with the stage's BatchNorms marked ``recomputing``, so their running
+    statistics and ``num_batches_tracked`` move once a step, as in the plain
+    step; its ``bn_stats`` launches are the cost (84 a ``siameseunet`` step
+    instead of 56). Subclasses define :meth:`stage`."""
+
+    remat = False
+
+    def forward(self, *xs: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            # the stages draw no random numbers: no RNG state to stash
+            return checkpoint(self.stage, *xs, use_reentrant=False,
+                              preserve_rng_state=False,
+                              context_fn=self._contexts)
+        return self.stage(*xs)
+
+    def _contexts(self):
+        return contextlib.nullcontext(), self._recompute()
+
+    @contextlib.contextmanager
+    def _recompute(self):
+        bns = [m for m in self.modules() if isinstance(m, BatchNorm2d)]
+        for m in bns:
+            m.recomputing = True
+        try:
+            yield
+        finally:
+            for m in bns:
+                m.recomputing = False
+
+
+def set_remat(model: nn.Module) -> None:
+    """Checkpoint every stage of ``model`` (``MODEL.REMAT: True``)."""
+    for m in model.modules():
+        if isinstance(m, _Stage):
+            m.remat = True
 
 
 class DoubleConv(nn.Module):
@@ -49,18 +97,18 @@ class DoubleConv(nn.Module):
         return self.conv(x)
 
 
-class InConv(nn.Module):
+class InConv(_Stage):
     """Stem block (reference networks.py:405-412)."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = DoubleConv(in_ch, out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def stage(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
 
 
-class Down(nn.Module):
+class Down(_Stage):
     """maxpool(2) + DoubleConv (reference networks.py:415-426). MaxPool2d(2)
     floors odd sizes, like the JAX package's VALID pool."""
 
@@ -68,11 +116,11 @@ class Down(nn.Module):
         super().__init__()
         self.mpconv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(in_ch, out_ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def stage(self, x: torch.Tensor) -> torch.Tensor:
         return self.mpconv(x)
 
 
-class Up(nn.Module):
+class Up(_Stage):
     """ConvTranspose(k=2, s=2) upsample + pad-to-skip + concat + DoubleConv
     (reference networks.py:429-451): ``Up(in_ch, out_ch)`` upsamples
     ``in_ch // 2`` channels and convolves the ``in_ch``-wide concat."""
@@ -82,7 +130,7 @@ class Up(nn.Module):
         self.up = nn.ConvTranspose2d(in_ch // 2, in_ch // 2, 2, stride=2)
         self.conv = DoubleConv(in_ch, out_ch)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def stage(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         x1 = self.up(x1)
         # pad the upsampled map to the skip's size; the odd pixel goes
         # after (bottom/right), as in the JAX package's jnp.pad

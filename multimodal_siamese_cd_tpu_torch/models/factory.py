@@ -8,7 +8,10 @@ widths; ``MODEL.TOPOLOGY`` does not apply to it), which the JAX package
 adds. An unknown type raises ``NotImplementedError``.
 ``MODEL.PACKED_FULLRES`` is accepted and ignored: packing is a layout
 trick for the TPU's matrix units, and the port always builds the
-reference-shaped graph.
+reference-shaped graph. ``MODEL.REMAT: True`` checkpoints every stem, Down
+and Up stage (:func:`.blocks.set_remat`) of every type but
+``siamunet_diff``, which does not take the flag, as in the JAX package's
+factory.py:62-64.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from ..device import resolve_device
 from . import networks
+from .blocks import set_remat
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -58,7 +62,14 @@ def create_network(cfg, device=None, generator: torch.Generator | None = None):
         tuple(cfg.MODEL.TOPOLOGY), input_channels(cfg),
         out_channels=cfg.MODEL.OUT_CHANNELS, compute_dtype=compute_dtype(cfg),
         generator=generator, n_s1_bands=len(cfg.DATALOADER.S1_BANDS))
+    if remat_applies(cfg):
+        set_remat(model)
     return model.to(device)
+
+
+def remat_applies(cfg) -> bool:
+    """``MODEL.REMAT`` is set and the model type takes it."""
+    return bool(cfg.MODEL.get("REMAT", False)) and cfg.MODEL.TYPE != "siamunet_diff"
 
 
 _MODELS = {

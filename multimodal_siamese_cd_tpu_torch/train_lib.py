@@ -119,15 +119,26 @@ def _make_step(model, optimizer, cfg, losses_of):
     in float32 on the CPU; the metrics are left on the device (no
     synchronisation).
 
+    ``TRAINER.GRAD_ACCUM: a > 1`` (the JAX package's train_lib.py:229-304)
+    splits the batch into ``a`` contiguous micro-batches (a size ``a`` does
+    not divide raises ``ValueError``), each a forward and a backward of
+    ``loss / a``, then one ``optimizer.step()`` on the averaged gradients.
+    Each micro-batch's BatchNorm normalises over that micro-batch, and the
+    running statistics chain through the micro-batches in order. The
+    augmentation is drawn once for the whole batch from the step's
+    generator and then split; a model with dropout draws its masks from
+    the same generator, micro-batch after micro-batch. (The JAX package
+    folds the micro-batch index into its key instead: the randomness is
+    each package's own, as the augmentation already is.) The metrics reduce
+    over the micro-batches by :func:`_reduce_window_metrics`. With ``a =
+    1`` the step is the plain one.
+
     A parameter the loss does not reach (the dual-task model's auxiliary
     head) gets a zero gradient before the update, as ``jax.value_and_grad``
     gives it in the JAX package: ``optax.adamw`` then still decays it by
     ``lr·wd`` every step, where ``torch.optim.AdamW`` would skip a parameter
     whose gradient is None."""
     accum = int(cfg.TRAINER.get("GRAD_ACCUM", 1))
-    if accum > 1:
-        raise NotImplementedError(
-            f"TRAINER.GRAD_ACCUM={accum} is not yet ported (ROADMAP item 12)")
     layout = stack_layout(cfg)
     device = next(model.parameters()).device
     dtype = compute_dtype(cfg) if device.type == "cuda" else torch.float32
@@ -137,25 +148,65 @@ def _make_step(model, optimizer, cfg, losses_of):
     draws_dropout = getattr(model, "draws_dropout", False)
 
     def step(stack: torch.Tensor, is_labeled, global_step: int) -> dict:
+        if stack.shape[0] % accum:
+            raise ValueError(f"TRAINER.GRAD_ACCUM={accum} must divide the "
+                             f"batch size {stack.shape[0]}")
         model.train()
         generator = augment_generator(cfg.SEED, global_step, device)
         stack_aug = augment(stack, cfg, layout, dtype, generator)
-        x_t1, x_t2, *labels = split_stack(stack_aug, layout)
-        with autocast(dtype, device):
-            if draws_dropout:
-                outputs = model(x_t1, x_t2, generator=generator)
-            else:
-                outputs = model(x_t1, x_t2)
-        metrics = losses_of(outputs, is_labeled, *labels)
+        labs = [None] * accum if is_labeled is None else is_labeled.chunk(accum)
         optimizer.zero_grad(set_to_none=True)
-        metrics["loss"].backward()
+        micro = []
+        for part, lab in zip(stack_aug.chunk(accum), labs):
+            x_t1, x_t2, *labels = split_stack(part, layout)
+            with autocast(dtype, device):
+                if draws_dropout:
+                    outputs = model(x_t1, x_t2, generator=generator)
+                else:
+                    outputs = model(x_t1, x_t2)
+            metrics = losses_of(outputs, lab, *labels)
+            loss = metrics["loss"]
+            (loss / accum if accum > 1 else loss).backward()
+            micro.append({k: v.detach() for k, v in metrics.items()})
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return micro[0] if accum == 1 else _reduce_window_metrics(micro)
 
     return step
+
+
+def _reduce_window_metrics(metrics: list) -> dict:
+    """Reduce per-micro-batch metric dicts to one (the JAX package's
+    train_lib.py:307-341). The semi-supervised component losses are means
+    over the entries where their partition was present, weighted by each
+    entry's count of batches that had it (``n_lab_steps`` /
+    ``n_notlab_steps``, else 0/1 presence); ``n_labeled`` and
+    ``n_notlabeled`` are sums, and the weights come back summed as
+    ``n_lab_steps`` / ``n_notlab_steps``, so a log window weighs an
+    accumulated step as the batches it holds. Every other key is a mean."""
+    stacked = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+    if "n_labeled" not in stacked:
+        return {k: v.mean() for k, v in stacked.items()}
+    w_lab = stacked.get("n_lab_steps", (stacked["n_labeled"] > 0).float())
+    w_unl = stacked.get("n_notlab_steps", (stacked["n_notlabeled"] > 0).float())
+
+    def wmean(key, w):
+        return (stacked[key] * w).sum() / w.sum().clamp_min(1.0)
+
+    return {
+        "loss": stacked["loss"].mean(),
+        "sup_loss": wmean("sup_loss", w_lab),
+        "cons_loss": wmean("cons_loss", w_unl),
+        "fusion_loss": wmean("fusion_loss", w_lab),
+        "stream1_loss": wmean("stream1_loss", w_lab),
+        "stream2_loss": wmean("stream2_loss", w_lab),
+        "n_labeled": stacked["n_labeled"].sum(),
+        "n_notlabeled": stacked["n_notlabeled"].sum(),
+        "n_lab_steps": w_lab.sum(),
+        "n_notlab_steps": w_unl.sum(),
+    }
 
 
 def make_supervised_train_step(model, optimizer, cfg):
@@ -267,14 +318,22 @@ def eval_forward(model, x_t1: torch.Tensor, x_t2: torch.Tensor) -> torch.Tensor:
     inputs: sigmoid of the change head, the first output of a multi-head
     model (the JAX package's ``eval_forward``, train_lib.py:529-537;
     reference evaluation.py:22). Puts ``model`` in
-    eval mode and runs under ``torch.inference_mode()``. On the card the
-    forward runs under bf16 autocast when the model's compute dtype is bf16
-    (``TRAINER.PRECISION``, default bf16) and in fp32 otherwise; on the CPU
-    it runs in fp32. An fp32 run on the card follows
-    ``torch.backends.cudnn.allow_tf32`` for its convolutions."""
+    eval mode and runs :func:`probabilities` under
+    ``torch.inference_mode()``."""
     model.eval()
+    with torch.inference_mode():
+        return probabilities(model, x_t1, x_t2)
+
+
+def probabilities(model, x_t1: torch.Tensor, x_t2: torch.Tensor) -> torch.Tensor:
+    """The arithmetic of :func:`eval_forward` for a model already in eval
+    mode, with no grad mode of its own (the serving export traces it). On
+    the card the forward runs under bf16 autocast when the model's compute
+    dtype is bf16 (``TRAINER.PRECISION``, default bf16) and in fp32
+    otherwise; on the CPU it runs in fp32. An fp32 run on the card follows
+    ``torch.backends.cudnn.allow_tf32`` for its convolutions."""
     dtype = getattr(model, "compute_dtype", torch.float32)
-    with torch.inference_mode(), autocast(dtype, x_t1.device):
+    with autocast(dtype, x_t1.device):
         out = model(x_t1, x_t2)
         if isinstance(out, tuple):
             out = out[0]

@@ -8,16 +8,20 @@ evaluation windows, the wandb metric names (the regime's losses,
 ``labeled_percentage``, ``time``, ``train_time``, ``step``, ``epoch``) and
 the checkpoint epochs. Per-regime differences live in ``_REGIMES``.
 
-The hot loop: threaded host loader (crop-only wire stacks) -> pinned,
-non-blocking copies on a side stream -> one step (augment + forward +
-backward + AdamW) on the card. Loss scalars (and, semi-supervised, each
-batch's labeled and unlabeled counts) stay on the card until a log window
-closes, then come back in one host fetch.
+The hot loop: host loader (thread or process workers, crop-only wire
+stacks) -> pinned, non-blocking copies on a side stream -> one step (augment
++ forward + backward + AdamW) on the card. Loss scalars (and,
+semi-supervised, each batch's labeled and unlabeled counts) stay on the
+card until a log window closes, then come back in one host fetch.
+
+Every key of :data:`.config.EXTENSION_KEYS` works, raises, or is printed as
+a declared no-op when the trainer starts (:func:`declare_knobs`).
 """
 
 from __future__ import annotations
 
 import timeit
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -26,7 +30,92 @@ from . import checkpoints, evaluation, train_lib, wandb_compat
 from .data.dataset import MultimodalCDDataset
 from .data.loader import TrainLoader, prefetch_to_device
 from .device import resolve_device
-from .models.factory import create_network
+from .models.factory import create_network, remat_applies
+
+# Extension keys that change nothing in the port, and why; printed when a
+# config sets them (TRAINER.SPATIAL_SHARDS > 1 and MODEL.REMAT on a model
+# that does not take it are declared in declare_knobs).
+DECLARED_NO_OPS = {
+    "TRAINER.STEPS_PER_EXECUTION": "runs as 1 (one optimizer step per host "
+                                   "dispatch; multi-step execution is not "
+                                   "ported)",
+    "TRAINER.WEDGE_TIMEOUT": "no-op (it tunes only the TPU dispatch probe of "
+                             "STEPS_PER_EXECUTION: auto)",
+    "MODEL.BN_AXIS_NAME": "no-op (the axis of the JAX package's shard_map "
+                          "BatchNorm; one device here)",
+    "MODEL.SYNC_BN": "no-op on one device (one BatchNorm group, as the JAX "
+                     "package's bn_group_count gives a one-device mesh)",
+    "MODEL.PACKED_FULLRES": "no-op (a TPU layout trick with the same "
+                            "results; the port builds the reference-shaped "
+                            "graph)",
+}
+
+
+def declare_knobs(cfg) -> None:
+    """Print each declared no-op the config sets (:data:`DECLARED_NO_OPS`),
+    the JAX package's data-parallel fall-back warning for
+    ``TRAINER.SPATIAL_SHARDS > 1`` (its trainers.py:64-66: there is one
+    card), and ``MODEL.REMAT`` on a model that does not take it."""
+    for key, what in DECLARED_NO_OPS.items():
+        section, name = key.split(".")
+        value = cfg[section].get(name, None)
+        if value is not None:
+            print(f"{name}={value}: {what}")
+    n_space = int(cfg.TRAINER.get('SPATIAL_SHARDS', 1))
+    if n_space > 1:
+        print(f"warning: device count / batch {cfg.TRAINER.BATCH_SIZE} / "
+              f"crop {cfg.AUGMENTATION.CROP_SIZE} incompatible with "
+              f"SPATIAL_SHARDS={n_space}; falling back to data-parallel")
+    if cfg.MODEL.get('REMAT', False) and not remat_applies(cfg):
+        print(f"REMAT=True: no-op for MODEL.TYPE {cfg.MODEL.TYPE} (it does "
+              f"not take the flag, as in the JAX package)")
+
+
+class ProfilerHook:
+    """With ``TRAINER.PROFILE_DIR`` set, a ``torch.profiler`` trace of
+    global steps [10, 30) (CPU activity, and CUDA activity on the card),
+    written into that directory as a Chrome trace when the window ends, or
+    at :meth:`close` if the run ends inside it (the JAX package's
+    ``ProfilerHook``, trainers.py:104-130)."""
+
+    START_STEP, STOP_STEP = 10, 30
+
+    def __init__(self, cfg, device: torch.device):
+        self.dir = cfg.TRAINER.get('PROFILE_DIR', None)
+        self.device = device
+        self._prof = None
+        self._first = self._last = 0
+
+    def step(self, global_step: int) -> None:
+        """Call after each step with the number of steps taken."""
+        if not self.dir:
+            return
+        self._last = global_step
+        if self._prof is None and global_step >= self.START_STEP:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+            self._first = global_step
+        elif self._prof is not None and global_step >= self.STOP_STEP:
+            self.close()
+            self.dir = None
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        _sync(self.device)
+        self._prof.stop()
+        out = Path(self.dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"steps_{self._first}-{self._last}.pt.trace.json"
+        self._prof.export_chrome_trace(str(path))
+        self._prof = None
+        print(f"profiler trace of steps [{self._first}, {self._last}) "
+              f"written to {path}")
 
 
 def print_run_config(cfg, device_desc: str) -> None:
@@ -106,16 +195,26 @@ _REGIMES = {
 }
 
 
+_LABEL_KEYS = ('n_labeled', 'n_notlabeled', 'n_lab_steps', 'n_notlab_steps')
+
+
 def _semisup_window_means(sets: dict, label_counts: list) -> dict:
     """Reduce a semi-supervised window with the reference's protocol
     (train_semisupervised.py:85-106; the JAX package's trainers.py:315-349):
     the supervised losses average over the batches that had labeled rows,
     the consistency loss over those that had unlabeled rows (the step
     writes 0 for an absent partition, which must not drag the means toward
-    0), ``loss`` over every batch; ``labeled_percentage`` from the counts.
-    ``label_counts`` rows are ``(n_labeled, n_notlabeled)``."""
-    counts = np.asarray(label_counts, np.float64).reshape(-1, 2)
-    w_lab, w_unl = (counts > 0).T.astype(np.float64)
+    0), ``loss`` over every entry; ``labeled_percentage`` from the counts.
+    ``label_counts`` rows are ``(n_labeled, n_notlabeled[, w_lab,
+    w_unl])``: the optional weights count the batches inside an
+    accumulated entry that had each partition (``n_lab_steps`` /
+    ``n_notlab_steps``); a row without them weighs 0/1 by presence."""
+    counts = np.array([[float(c) for c in r[:2]] for r in label_counts],
+                      np.float64).reshape(-1, 2)
+    w_lab = np.array([float(r[2]) if len(r) > 2 else float(r[0] > 0)
+                      for r in label_counts])
+    w_unl = np.array([float(r[3]) if len(r) > 3 else float(r[1] > 0)
+                      for r in label_counts])
 
     def weighted_mean(key, w):
         return float((np.asarray(sets[key], np.float64) * w).sum() / w.sum()) \
@@ -146,7 +245,10 @@ def _window_summary(sets: dict, label_counts: list,
         out[key] = fetched[i:i + len(values)]
         i += len(values)
     if track_labels:
-        rows = [fetched[j:j + 2] for j in range(i, len(fetched), 2)]
+        rows = []
+        for row in label_counts:
+            rows.append(fetched[i:i + len(row)])
+            i += len(row)
         return _semisup_window_means(out, rows)
     out = {k: float(np.mean(v)) if v else 0.0 for k, v in out.items()}
     out['labeled_percentage'] = 100
@@ -159,28 +261,31 @@ def run_training(cfg, regime: str, device=None) -> None:
     card."""
     device = resolve_device(device)
     print_run_config(cfg, str(device))
-    raw = cfg.TRAINER.get('STEPS_PER_EXECUTION', None)
-    if raw is not None:
-        print(f'STEPS_PER_EXECUTION={raw}: runs as 1 (one optimizer step per '
-              f'host dispatch; multi-step execution is not ported)')
+    declare_knobs(cfg)
 
     model, optimizer, start_step = _create_or_resume(cfg, device)
     step_fn = train_lib.make_train_step(model, optimizer, cfg, regime)
     loader = _loader(cfg)
-    steps_per_epoch = len(loader)
-    if steps_per_epoch == 0:
-        raise ValueError(
-            f"empty training loader: {len(loader.dataset)} samples < "
-            f"TRAINER.BATCH_SIZE={cfg.TRAINER.BATCH_SIZE} with drop_last — "
-            f"shrink the batch or raise DATALOADER.TRAINING_MULTIPLIER")
-    start_epoch = start_step // steps_per_epoch
-    if start_epoch:
-        print(f'resuming at epoch {start_epoch + 1} '
-              f'(step {start_step}, {steps_per_epoch} steps/epoch)')
-        # an unbroken run would have consumed start_epoch loader epochs
-        loader.set_epoch(start_epoch)
-    _run_epochs(cfg, _REGIMES[regime], model, optimizer, step_fn, loader,
-                steps_per_epoch, start_step, start_epoch, device)
+    profiler = ProfilerHook(cfg, device)
+    try:
+        steps_per_epoch = len(loader)
+        if steps_per_epoch == 0:
+            raise ValueError(
+                f"empty training loader: {len(loader.dataset)} samples < "
+                f"TRAINER.BATCH_SIZE={cfg.TRAINER.BATCH_SIZE} with drop_last "
+                f"— shrink the batch or raise DATALOADER.TRAINING_MULTIPLIER")
+        start_epoch = start_step // steps_per_epoch
+        if start_epoch:
+            print(f'resuming at epoch {start_epoch + 1} '
+                  f'(step {start_step}, {steps_per_epoch} steps/epoch)')
+            # an unbroken run would have consumed start_epoch loader epochs
+            loader.set_epoch(start_epoch)
+        _run_epochs(cfg, _REGIMES[regime], model, optimizer, step_fn, loader,
+                    steps_per_epoch, start_step, start_epoch, device, profiler)
+    finally:
+        # a process pool keeps its workers (and their dataset copies) alive
+        loader.close()
+        profiler.close()
 
 
 def _sync(device: torch.device) -> None:
@@ -189,7 +294,7 @@ def _sync(device: torch.device) -> None:
 
 
 def _run_epochs(cfg, spec, model, optimizer, step_fn, loader, steps_per_epoch,
-                start_step, start_epoch, device) -> None:
+                start_step, start_epoch, device, profiler) -> None:
     epochs = cfg.TRAINER.EPOCHS
     global_step = start_step
     epoch_float = global_step / steps_per_epoch
@@ -209,8 +314,10 @@ def _run_epochs(cfg, spec, model, optimizer, step_fn, loader, steps_per_epoch,
             for k in sets:
                 sets[k].append(m[k])
             if spec['track_labels']:
-                label_counts.append((m['n_labeled'], m['n_notlabeled']))
+                # an accumulated step also carries its presence weights
+                label_counts.append(tuple(m[k] for k in _LABEL_KEYS if k in m))
             global_step += 1
+            profiler.step(global_step)
             epoch_float = global_step / steps_per_epoch
 
             if cfg.DEBUG:   # one step (train_supervised.py:84-86)

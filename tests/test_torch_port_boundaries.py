@@ -34,6 +34,8 @@ PORT_MODULES = [
     "png", "bitmap_font", "visualization", "spacenet7", "dataset_helpers",
     "assessment_change", "assessment_semantics", "qualitative_comparison",
     "sanity_check", "preprocessing", "upload_study_area",
+    # slice 7: serving
+    "serving", "export_serving",
 ]
 
 

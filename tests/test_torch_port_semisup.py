@@ -214,7 +214,7 @@ def _resumed_optimizers(s):
     return state, optimizer
 
 
-def _steps_match(s, regime, batches, check=None):
+def _steps_match(s, regime, batches, check=None, param_atol=5e-6):
     """Run ``batches`` through the JAX step and the port's step from the same
     weights and AdamW state (:func:`_resumed_optimizers`); hold every
     metric (atol 1e-5) and BN running statistic (atol 1e-6, running means
@@ -222,8 +222,8 @@ def _steps_match(s, regime, batches, check=None):
     update of a BN moves its offset to 0.9·offset + 0.1·d, with d the
     difference of the bias in front of it) after every step, and every
     parameter after the last (atol 5e-6). ``check(i, out)`` sees each
-    step's port metrics. Returns the BN calls per step of each
-    BatchNorm."""
+    step's port metrics; ``param_atol`` replaces the parameters'
+    tolerance. Returns the BN calls per step of each BatchNorm."""
     state, optimizer = _resumed_optimizers(s)
     jstep = jax_train_lib.make_train_step(s.jmodel, s.jcfg, regime, jit=False)
     model = s.tmodel
@@ -263,9 +263,10 @@ def _steps_match(s, regime, batches, check=None):
     init = _sd(s.variables["params"], "params")
     moved = 0.0
     for name, want in _sd(state.params, "params").items():
-        np.testing.assert_allclose(ours[name].numpy(), want, atol=5e-6, err_msg=name)
+        np.testing.assert_allclose(ours[name].numpy(), want, atol=param_atol,
+                                   err_msg=name)
         moved = max(moved, float(np.abs(want - init[name]).max()))
-    assert moved > 10 * 5e-6     # the steps moved parameters far past the atol
+    assert moved > 10 * param_atol     # the steps moved parameters far past it
     return calls
 
 

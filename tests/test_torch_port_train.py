@@ -214,15 +214,15 @@ def test_train_loader_matches_jax(fixture_dataset, overrides, workers):
 
 def test_loader_contract(fixture_dataset):
     """A training dataset yields the planar crop stack; an evaluation one
-    has no stack; process workers are refused."""
+    has no stack; a worker type other than thread or process is refused."""
     _, tcfg = _cfgs(fixture_dataset)
     tds = MultimodalCDDataset(tcfg, "training")
     n_img = 2 * len(tcfg.DATALOADER.S1_BANDS) + 2 * len(tcfg.DATALOADER.S2_BANDS)
     assert tds.stack_spec() == ((n_img + 3, 32, 32), np.float16)
     assert tds.get(0, np.random.default_rng(0))["stack"].shape == (n_img + 3, 32, 32)
     assert MultimodalCDDataset(tcfg, "training", no_augmentations=True).stack_spec() is None
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TrainLoader(tds, batch_size=2, worker_type="process")
+    with pytest.raises(ValueError, match="thread|process"):
+        TrainLoader(tds, batch_size=2, worker_type="bogus")
 
 
 # --- one supervised step -----------------------------------------------------------
@@ -402,15 +402,6 @@ def test_torch_batchnorm_misses_flax_running_var(step_setup):
                    if k.endswith("running_mean"))
     assert mean_err < 1e-6
     assert var_err > 1e-4
-
-
-def test_grad_accum_is_not_ported(step_setup):
-    cfg = copy.deepcopy(step_setup.tcfg)
-    cfg.TRAINER.GRAD_ACCUM = 2
-    model = create_network(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        train_lib.make_supervised_train_step(
-            model, train_lib.make_optimizer(model, cfg), cfg)
 
 
 def test_split_stack_matches_jax(step_setup):
