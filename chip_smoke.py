@@ -100,7 +100,29 @@ script exits non-zero:
      step's), step time and peak memory, then plain and REMAT at batch 32;
      c. ``trainers.run_training`` with GRAD_ACCUM 2, process loader workers
      and PROFILE_DIR (16 steps): finite window losses, a trace file, and the
-     process batches equal to a thread loader's.
+     process batches equal to a thread loader's;
+ 10. data parallelism (``multimodal_siamese_cd_tpu_torch.parallel``):
+     a. a world of two ranks on the one card over gloo (NCCL refuses two
+     ranks on one device; gloo runs all_reduce, broadcast and barrier, all
+     the port uses, on CUDA tensors), started by ``parallel.cluster_check.
+     launch_cluster``: from phase 5's checkpoint, one full-width sync-BN
+     step at global batch 8 (4 rows per rank), held against the one-process
+     batch-8 step on the same weights and batch (limits ``PARALLEL_LIMITS``),
+     the ranks' gradients, parameters and buffers bit-equal, each rank's 56
+     bn_stats launches, their first launch of each signature held against
+     the plain version as in phase 7; the step time, the share of it inside
+     all-reduces and the peak memory per rank; then ``run_measurer`` over
+     the 20 scenes sharded over the two ranks, its counts equal on both
+     ranks and exactly the one-process counts of the same shares (whose
+     bn_stats and confusion launches, and the one-process step's, are held
+     against the plain versions as in phase 7, which then holds the ranks'
+     counts too), and their distance from the counts of whole groups;
+     b. ``trainers.run_training`` under ``MSCD_DISTRIBUTED=1`` at world size
+     1 over NCCL (the production backend; the trainer's env-gated
+     initialisation, tried again on a new port if the store's was taken):
+     finite windows, one checkpoint, 56 bn_stats launches a step and the
+     evaluations' confusion launches, all held against the plain versions
+     as in phase 7.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports only the port,
@@ -129,10 +151,10 @@ import torch.nn.functional as F
 
 from multimodal_siamese_cd_tpu_torch import (assessment_change, assessment_semantics,
                                              checkpoints, evaluation, export_serving,
-                                             geofiles, metrics, png, preprocessing,
-                                             qualitative_comparison, sanity_check,
-                                             serving, train_lib, trainers,
-                                             wandb_compat)
+                                             geofiles, metrics, parallel, png,
+                                             preprocessing, qualitative_comparison,
+                                             sanity_check, serving, train_lib,
+                                             trainers, wandb_compat)
 from multimodal_siamese_cd_tpu_torch.config import load_cfg
 from multimodal_siamese_cd_tpu_torch.data.dataset import MultimodalCDDataset
 from multimodal_siamese_cd_tpu_torch.data.loader import TrainLoader, prefetch_to_device
@@ -141,6 +163,7 @@ from multimodal_siamese_cd_tpu_torch.metrics import MultiThresholdMetric
 from multimodal_siamese_cd_tpu_torch.models import batchnorm
 from multimodal_siamese_cd_tpu_torch.models.factory import create_network
 from multimodal_siamese_cd_tpu_torch.ops import _build, bn_stats, confusion, conv3x3
+from multimodal_siamese_cd_tpu_torch.parallel import cluster_check
 from multimodal_siamese_cd_tpu_torch.train_lib import eval_forward
 
 # Peak memory rate (bytes/s), fp32 non-tensor-core rate and bf16 dense
@@ -197,6 +220,15 @@ KNOB_MODES = (("plain", 1, False), ("GRAD_ACCUM 2", 2, False),
 # phase 9c: 8 AOIs x 16 = 128 crops = 16 steps of 8 (past the profiler's
 # start at step 10), two LOG_FREQ windows of 8
 KNOB_MULTIPLIER, KNOB_LOG_FREQ = 16, 8
+# phase 10a: ranks on the one card, the two-rank step's limits against the
+# one-process step in bf16 (relative: |dloss| / |loss|, and the L2 norm of
+# the difference over that of the one-process value for the flat gradient
+# and the flat running statistics), steps timed after the counted one;
+# 10b: 8 AOIs x 4 = 32 crops = 4 steps of 8, two LOG_FREQ windows
+PARALLEL_RANKS, PARALLEL_TIMED_STEPS = 2, 5
+PARALLEL_LIMITS = {"loss": 5e-3, "grads": 2e-2, "buffers": 1e-3}
+NCCL_MULTIPLIER, NCCL_LOG_FREQ = 4, 2
+NCCL_PORT_TRIES = 3
 
 
 def log(*args) -> None:
@@ -2073,6 +2105,217 @@ def phase_knob_run(card: dict, rows: dict, dev: torch.device, root: Path,
     return bn_launches
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+def _rel(got: dict, want: dict, keys) -> float:
+    """L2 norm of ``got - want`` over that of ``want``, over ``keys``."""
+    diff = sum(float((got[k].double() - want[k].double()).square().sum()) for k in keys)
+    norm = sum(float(want[k].double().square().sum()) for k in keys)
+    return (diff / max(norm, 1e-300)) ** 0.5
+
+
+def _bn_seen(kept: list) -> dict:
+    """A worker's kept bn_stats launches in :func:`_keepers`' layout."""
+    return {(tuple(k["shape"]), getattr(torch, k["dtype"]), k["same"]):
+            (k["a"], k["b"], tuple(k["out"])) for k in kept}
+
+
+def phase_parallel(card: dict, rows: dict, dev: torch.device, root: Path,
+                   aois: list) -> tuple:
+    """10a: two ranks over gloo on the one card, from phase 5's checkpoint;
+    returns the world's bn_stats and rounding-rule confusion launches."""
+    cfg = _train_cfg(root, root / "train_out", aois)
+    ckpt = str(checkpoints.checkpoint_file(cfg, 1))
+    loader = TrainLoader(MultimodalCDDataset(cfg, "training"), cfg.TRAINER.BATCH_SIZE,
+                         num_workers=0, seed=1)
+    batch = next(iter(loader))
+    # the workers' config: phase 5's, from the shipped file and overrides
+    opts = _split_opts(aois, aois) + [
+        "MODEL.TOPOLOGY", repr(list(cfg.MODEL.TOPOLOGY)),
+        "TRAINER.PRECISION", str(cfg.TRAINER.get("PRECISION", "bf16")),
+        "TRAINER.BATCH_SIZE", str(cfg.TRAINER.BATCH_SIZE)]
+    common = dict(config="siamese", overrides=opts, paths={"DATASET": str(root)},
+                  checkpoint=ckpt)
+    step = dict(common, name="step", kind="step", regime="supervised",
+                stack=torch.from_numpy(batch["stack"]),
+                is_labeled=torch.from_numpy(batch["is_labeled"]))
+    scenes = dict(common, name="eval", kind="measurer", split="test")
+    out_dir = root / "parallel_out"
+    t0 = time.perf_counter()
+    rcs, outs = cluster_check.launch_cluster(
+        {"device": dev.type, "backend": "gloo",
+         "cases": [dict(step, keep_bn=True, timed_steps=PARALLEL_TIMED_STEPS),
+                   scenes]},
+        out_dir, world=PARALLEL_RANKS, timeout=300)
+    world_s = time.perf_counter() - t0
+    for rank, (out, err) in enumerate(outs):
+        for line in out.splitlines():
+            log(f"  [rank {rank}] {line}")
+        if rcs[rank] != 0:
+            log(err[-6000:])
+    if rcs != [0] * PARALLEL_RANKS:
+        raise AssertionError(f"the world of {PARALLEL_RANKS} ranks exited {rcs}")
+    got = {name: [torch.load(out_dir / f"{name}.rank{r}.pt", weights_only=False)
+                  for r in range(PARALLEL_RANKS)] for name in ("step", "eval")}
+
+    # ---- the one-process references, on the same weights and inputs; their
+    # kernel launches held against the plain versions (the world's counts
+    # must equal the shares' exactly, so this holds the ranks' too) ----
+    torch.cuda.synchronize()
+    bn_seen, conf_calls, keep_bn, keep_conf = _keepers()
+    with _watch(batchnorm, "bn_stats", keep_bn), \
+            _watch(evaluation, "confusion_counts", keep_conf):
+        one = cluster_check.run_case(dict(step, timed_steps=PARALLEL_TIMED_STEPS),
+                                     dev)
+        shares = [cluster_check.run_case(dict(scenes, shard=(r, PARALLEL_RANKS)),
+                                         dev) for r in range(PARALLEL_RANKS)]
+    _check_path_launches(rows, dev, bn_seen, conf_calls,
+                         "one-process batch-8 step and shares")
+    whole = cluster_check.run_case(scenes, dev)
+
+    ranks = got["step"]
+    per_step = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)
+    for rank, res in enumerate(ranks):
+        worst, err = _check_bn_launches(rows, dev, _bn_seen(res["bn_kept"]),
+                                        f"two-rank (rank {rank})")
+        log(f"  rank {rank}: bn_stats launches {res['launches']} (expected "
+            f"{per_step}), its {len(res['bn_kept'])} signatures within the limit "
+            f"(worst {worst:.4f}, max |kernel - ref| {err:.3e})")
+        if res["launches"] != per_step:
+            raise AssertionError(f"rank {rank} launched bn_stats {res['launches']} "
+                                 f"times in one step, expected {per_step}")
+    same = all(torch.equal(t, ranks[1][part][name]) for part in ("grads", "params",
+                                                                 "buffers")
+               for name, t in ranks[0][part].items())
+    stats = [k for k in one["buffers"] if "running" in k]
+    errors = {
+        "loss": abs(ranks[0]["metrics"]["loss"] - one["metrics"]["loss"])
+        / abs(one["metrics"]["loss"]),
+        "grads": _rel(ranks[0]["grads"], one["grads"], one["grads"]),
+        "buffers": _rel(ranks[0]["buffers"], one["buffers"], stats),
+    }
+    log(f"two ranks over gloo on one card, global batch {cfg.TRAINER.BATCH_SIZE} "
+        f"({cfg.TRAINER.BATCH_SIZE // PARALLEL_RANKS} rows per rank), "
+        f"{cfg.TRAINER.get('PRECISION', 'bf16')}, sync-BN, "
+        f"from {Path(ckpt).name}: loss {ranks[0]['metrics']['loss']:.6f} (one "
+        f"process {one['metrics']['loss']:.6f}); against the one-process step "
+        + ", ".join(f"{k} {v:.3e} (limit {PARALLEL_LIMITS[k]:g})"
+                    for k, v in errors.items())
+        + f"; ranks' gradients, parameters and buffers bit-equal: {same}")
+    if not same or any(errors[k] > PARALLEL_LIMITS[k] for k in errors):
+        raise AssertionError(f"the two-rank step: {errors}, ranks equal {same}")
+    for rank, res in enumerate(ranks):
+        t = res["timing"]
+        log(f"  rank {rank}: step {t['step_s'] * 1e3:.1f} ms (host clock, median "
+            f"of {PARALLEL_TIMED_STEPS}: "
+            + ", ".join(f"{x * 1e3:.1f}" for x in t["steps_s"])
+            + f"); an instrumented step {t['instrumented_s'] * 1e3:.1f} ms, of it "
+            f"{t['all_reduce_s'] * 1e3:.1f} ms in {t['all_reduce_calls']} "
+            f"all-reduces of {t['all_reduce_bytes'] / 2**20:.1f} MiB "
+            f"({t['all_reduce_s'] / t['instrumented_s'] * 100:.1f}%); peak "
+            f"{t['peak_bytes'] / 2**30:.2f} GiB ({card['smi']})")
+    t = one["timing"]
+    log(f"  one process, batch {cfg.TRAINER.BATCH_SIZE}: step {t['step_s'] * 1e3:.1f} "
+        f"ms (host clock, median of {PARALLEL_TIMED_STEPS}); peak "
+        f"{t['peak_bytes'] / 2**30:.2f} GiB")
+
+    evals = got["eval"]
+    keys = ("TP", "TN", "FP", "FN")
+    equal = all(torch.equal(evals[0][k], evals[1][k]) for k in keys)
+    exact = all(torch.equal(evals[0][k], shares[0][k] + shares[1][k]) for k in keys)
+    dist = {k: float((evals[0][k] - whole[k]).abs().max()) for k in keys}
+    conf = sum(e["launches"] for e in evals)
+    log(f"run_measurer over {len(aois)} scenes sharded over {PARALLEL_RANKS} ranks: "
+        + ", ".join(f"{k} {int(evals[0][k][0])}" for k in keys)
+        + f", F1 {evals[0]['f1']:.6f}; equal on both ranks {equal}; == the "
+        f"one-process counts of the same shares {exact}; |counts - whole groups' "
+        f"counts| " + ", ".join(f"{k} {v:g}" for k, v in dist.items())
+        + f" (F1 {whole['f1']:.6f}); confusion launches per rank "
+        f"{[e['launches'] for e in evals]}, one process per share "
+        f"{[s['launches'] for s in shares]}")
+    if not (equal and exact) or min(e["launches"] for e in evals) < 1:
+        raise AssertionError("the sharded counts differ between the ranks or from "
+                             "the one-process shares, or no rank launched the "
+                             "confusion kernel")
+    log(f"phase 10a: the world's launch {world_s:.1f} s wall")
+    return sum(r["launches"] for r in ranks), conf
+
+
+def phase_nccl(card: dict, rows: dict, dev: torch.device, root: Path,
+               aois: list) -> tuple:
+    """10b: ``trainers.run_training`` with ``MSCD_DISTRIBUTED=1`` in a world
+    of one rank over NCCL; returns its bn_stats and confusion launches."""
+    import socket
+
+    out = root / "nccl_out"
+    out.mkdir()
+    cfg = _train_cfg(root, out, aois)
+    cfg.DATALOADER.TRAINING_MULTIPLIER = NCCL_MULTIPLIER
+    cfg.LOG_FREQ = NCCL_LOG_FREQ
+    env = {"MSCD_DISTRIBUTED": "1", "MASTER_ADDR": "127.0.0.1",
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in [*env, "MASTER_PORT"]}
+    os.environ.update(env)
+    bn_seen, conf_calls, keep_bn, keep_conf = _keepers()
+    wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl", out_dir=out)
+    try:
+        for attempt in range(NCCL_PORT_TRIES):
+            # a free port, released for the store to bind: another process may
+            # take it in between, and then the init fails before the run
+            # starts and the run is tried again on a new port
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                os.environ["MASTER_PORT"] = str(sock.getsockname()[1])
+            try:
+                with _watch(batchnorm, "bn_stats", keep_bn), \
+                        _watch(evaluation, "confusion_counts", keep_conf):
+                    # ---- the run, with the kernels' launch counts around it --
+                    torch.cuda.synchronize()
+                    _reset_counts()
+                    t0 = time.perf_counter()
+                    trainers.run_training(cfg, "supervised")  # this rank's card
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    bn_launches, conf_launches, _ = _counts()
+                    # ----------------------------------------------------------
+                break
+            except torch.distributed.DistNetworkError as e:
+                if (torch.distributed.is_initialized()
+                        or attempt + 1 == NCCL_PORT_TRIES):
+                    raise
+                log(f"  the store's port {os.environ['MASTER_PORT']} was taken "
+                    f"({str(e).splitlines()[0][:200]}); again on another")
+        backend = torch.distributed.get_backend()
+        world_size = torch.distributed.get_world_size()
+    finally:
+        wandb_compat.finish()
+        parallel.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _check_path_launches(rows, dev, bn_seen, conf_calls, "NCCL")
+    windows = [r for r in _records(out, cfg.NAME) if "train_time" in r]
+    steps = windows[-1]["step"] if windows else 0
+    expect = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)
+    ckpts = sorted(p.name for p in (out / "networks").iterdir())
+    log(f"run_training under MSCD_DISTRIBUTED=1, backend {backend}, world size "
+        f"{world_size}: {steps} steps in {wall:.1f} s wall (with its evals), "
+        f"bn_stats launches {bn_launches} ({bn_launches / max(steps, 1):g} per "
+        f"step, expected {expect}), confusion {conf_launches}; window losses "
+        + ", ".join(f"{r['loss']:.6f}" for r in windows) + f"; checkpoints {ckpts}")
+    if (backend != "nccl" or world_size != 1
+            or steps != TRAIN_AOIS * NCCL_MULTIPLIER // cfg.TRAINER.BATCH_SIZE
+            or bn_launches != expect * steps or conf_launches < 1
+            or len(windows) != steps // NCCL_LOG_FREQ
+            or not all(np.isfinite(r["loss"]) for r in windows)
+            or ckpts != [f"{cfg.NAME}_checkpoint1.pt"]):
+        raise AssertionError("the NCCL run: wrong backend, world, step or launch "
+                             "count, a non-finite loss, or not one checkpoint")
+    return bn_launches, conf_launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2101,6 +2344,12 @@ def main() -> None:
         t9 = time.perf_counter()
         log(f"phase 9: {t9 - t9a:.1f} s wall, checks included (9a {t9b - t9a:.1f} "
             f"s, 9b {t9c - t9b:.1f} s, 9c {t9 - t9c:.1f} s)")
+        for phase in (phase_parallel, phase_nccl):
+            bn_launches, conf_launches = phase(card, rows, dev, root, aois)
+            rows["bn_stats"]["launches"] += bn_launches
+            rows["confusion_counts"]["launches"] += conf_launches
+        t10 = time.perf_counter()
+        log(f"phase 10: {t10 - t9:.1f} s wall, checks included")
     finally:
         tmp.cleanup()
     log(f"kernels: {json.dumps(list(rows))}; chip_smoke wall "

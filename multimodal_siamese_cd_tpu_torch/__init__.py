@@ -24,7 +24,12 @@ and ``dtsiameseunet``:
 * serving — ``serving`` (``torch.export`` bundles, ``ServingModel``) and
   the ``export_serving`` CLI — and the single-device training knobs
   (``TRAINER.GRAD_ACCUM``, ``MODEL.REMAT``, ``TRAINER.PROFILE_DIR``,
-  ``DATALOADER.WORKER_TYPE process``).
+  ``DATALOADER.WORKER_TYPE process``);
+* data parallelism over processes — ``parallel`` (one process per card
+  under ``torchrun`` with ``MSCD_DISTRIBUTED=1``; sync-BN through the
+  ``bn_stats`` sums summed over the ranks, the loss over the global batch,
+  one flat gradient all-reduce; evaluation groups sharded over the ranks,
+  the confusion counts summed over them).
 
 Entry points run on the card unless ``device="cpu"`` is passed.
 """

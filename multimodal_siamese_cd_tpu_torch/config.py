@@ -34,10 +34,10 @@ _SCI_NOTATION = re.compile(r"^[+-]?(\d+(\.\d*)?|\.\d+)[eE][+-]?\d+$")
 # printed as a declared no-op when the trainer starts
 # (trainers.declare_knobs); none is accepted silently.
 EXTENSION_KEYS = frozenset({
-    "MODEL.BN_AXIS_NAME",          # declared no-op: one device
+    "MODEL.BN_AXIS_NAME",          # declared no-op: a shard_map axis name
     "MODEL.PACKED_FULLRES",        # declared no-op: a TPU layout trick
     "MODEL.REMAT",                 # blocks.py: checkpointed stages
-    "MODEL.SYNC_BN",               # declared no-op: one BatchNorm group
+    "MODEL.SYNC_BN",               # batchnorm.py: sync-BN over the ranks
     "TRAINER.PRECISION",           # factory.py: bf16/fp32 compute dtype
     "TRAINER.GRAD_ACCUM",          # train_lib.py: micro-batches
     "TRAINER.SPATIAL_SHARDS",      # > 1: the data-parallel fall-back warning

@@ -11,6 +11,11 @@ package's ``data/loader.py``).
   epoch])`` and ``SeedSequence([seed, epoch, batch])`` spawns, the JAX
   package's schedule, so one seed gives both packages, and both worker
   types, the same batches.
+* In a world of several ranks each rank assembles only its rows of every
+  global batch (``rows``, :func:`..parallel.batch_rows`): the batch's
+  ``SeedSequence`` spawns one child per row of the global batch and the
+  rank keeps its rows' children, so its rows are exactly the global
+  batch's.
 * :func:`prefetch_to_device` copies each batch through pinned host memory
   with ``non_blocking=True`` on a side stream, and the consumer's stream
   waits on an event recorded after the copy.
@@ -54,12 +59,16 @@ def collate(items: list[dict]) -> dict:
 
 
 def _assemble_batch(dataset, seed: int, epoch: int, batch_idx: int,
-                    indices) -> dict:
+                    indices, rows=None) -> dict:
     """One collated batch, deterministic per (seed, epoch, batch): the
     training dataset's samples are assembled straight into one ``(B, C, S,
-    S)`` buffer of its ``stack_spec()``."""
-    ss = np.random.SeedSequence([seed, epoch, batch_idx])
-    rngs = [np.random.default_rng(c) for c in ss.spawn(len(indices))]
+    S)`` buffer of its ``stack_spec()``. ``rows``: only these rows of the
+    batch ``indices`` describes, each with its own draws."""
+    children = np.random.SeedSequence([seed, epoch, batch_idx]).spawn(len(indices))
+    if rows is not None:
+        indices = [indices[r] for r in rows]
+        children = [children[r] for r in rows]
+    rngs = [np.random.default_rng(c) for c in children]
     shape, dtype = dataset.stack_spec()
     stack = np.empty((len(indices),) + tuple(shape), dtype)
     items = [dataset.get(int(i), rng, out=stack[k])
@@ -73,14 +82,15 @@ def _assemble_batch(dataset, seed: int, epoch: int, batch_idx: int,
 _WORKER_STATE: dict = {}
 
 
-def _init_worker(dataset, seed: int) -> None:
+def _init_worker(dataset, seed: int, rows) -> None:
     _WORKER_STATE["dataset"] = dataset
     _WORKER_STATE["seed"] = seed
+    _WORKER_STATE["rows"] = rows
 
 
 def _assemble_in_worker(epoch: int, batch_idx: int, indices) -> dict:
     return _assemble_batch(_WORKER_STATE["dataset"], _WORKER_STATE["seed"],
-                           epoch, batch_idx, indices)
+                           epoch, batch_idx, indices, _WORKER_STATE["rows"])
 
 
 class TrainLoader:
@@ -95,11 +105,15 @@ class TrainLoader:
     missing), never ``fork``, because torch's and CUDA's threads are live
     by then; each worker receives the dataset once, from the pool's
     initializer. A pool that fails to start raises when its first batch is
-    read; there is no fall-back to threads."""
+    read; there is no fall-back to threads.
+
+    ``rows`` (a rank's :func:`..parallel.batch_rows` of ``batch_size``)
+    makes every batch those rows of the global batch alone; ``len()`` still
+    counts global batches."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 2, seed: int = 0,
-                 worker_type: str = "thread"):
+                 worker_type: str = "thread", rows=None):
         if worker_type not in ("thread", "process"):
             raise ValueError(f"worker_type must be thread|process, got {worker_type!r}")
         self.dataset = dataset
@@ -108,6 +122,7 @@ class TrainLoader:
         self.num_workers = min(max(0, int(num_workers)), os.cpu_count() or 1)
         self.seed = seed
         self.worker_type = worker_type
+        self.rows = None if rows is None else [int(r) for r in rows]
         self._epoch = 0
         self._processes = None
 
@@ -135,7 +150,8 @@ class TrainLoader:
         batches = self._batch_indices(epoch)
         if self.num_workers == 0:
             for b, idxs in enumerate(batches):
-                yield _assemble_batch(self.dataset, self.seed, epoch, b, idxs)
+                yield _assemble_batch(self.dataset, self.seed, epoch, b, idxs,
+                                      self.rows)
             return
 
         if self.worker_type == "thread":
@@ -143,7 +159,7 @@ class TrainLoader:
 
             def submit(b):
                 return pool.submit(_assemble_batch, self.dataset, self.seed,
-                                   epoch, b, batches[b])
+                                   epoch, b, batches[b], self.rows)
         else:
             pool = self._process_pool()
 
@@ -180,7 +196,8 @@ class TrainLoader:
                 "forkserver" if "forkserver" in methods else "spawn")
             self._processes = ProcessPoolExecutor(
                 max_workers=self.num_workers, mp_context=ctx,
-                initializer=_init_worker, initargs=(self.dataset, self.seed))
+                initializer=_init_worker,
+                initargs=(self.dataset, self.seed, self.rows))
         return self._processes
 
     def close(self) -> None:

@@ -14,8 +14,17 @@ is the trainer's in-training evaluation with its wandb logging (on a
 dual-task model, of its change head). ``dualtask_quantitative_counts`` is
 the dual-task assessment's pooled strict-threshold counts
 (assessment_semantics.py), through the kernel's strict variant;
-``dualtask_scene_outputs`` gives one scene's four heads. Mesh / sharded
-eval comes in a later slice.
+``dualtask_scene_outputs`` gives one scene's four heads.
+
+In a world of several ranks (:mod:`.parallel`) the wire paths shard every
+scene group over the ranks, as the JAX package's ``_shard_group`` shards it
+over the data mesh: the group grows with the world, is padded to a multiple
+of it with zero-valid scenes (their counts are exactly zero), and each rank
+runs the forward of its contiguous share; the per-group counts are summed
+over the ranks (exact integers), so every rank ends with the same
+measurer, as the JAX package's replicated counts give every process. Every
+rank builds the same groups from every wire and makes the same number of
+forwards and collectives.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from .data.dataset import MultimodalCDDataset
 from .device import resolve_device
 from .metrics import MultiThresholdMetric
 from .ops.confusion import confusion_counts, strict_confusion_counts
+from .parallel import group as _group
 from .train_lib import autocast, eval_forward
 
 EVAL_BUCKET = 64
@@ -126,7 +136,7 @@ def _eval_wire_counts(model, x1p: np.ndarray, x2p: np.ndarray, y: np.ndarray,
 
 
 def _stream_wire_groups(wires, keys: tuple, run_group, accumulate,
-                        group_scale: int = 1) -> None:
+                        group_scale: int = 1, shard=None) -> None:
     """Group ``wires`` (an iterable of eval wires, as
     :meth:`.data.dataset.MultimodalCDDataset.eval_wire` or
     :func:`_dualtask_item_wire` give them) by padded shape and dispatch a
@@ -138,17 +148,39 @@ def _stream_wire_groups(wires, keys: tuple, run_group, accumulate,
     :func:`dualtask_quantitative_counts`, :func:`dualtask_item_counts`).
 
     ``run_group(arrs)`` dispatches one stacked group (the wire's ``keys``,
-    in order) and returns its device result; ``accumulate(result)`` fetches
-    and folds it on the host. ``group_scale`` divides
-    :func:`eval_group_limit`'s memory envelope for dispatches that hold
-    more live bytes per scene than the change-head forward it was set for."""
+    in order) and returns its per-scene device counts; ``accumulate(counts)``
+    folds their sum over the scenes (int64, on the device) into the host's
+    totals. ``group_scale`` divides :func:`eval_group_limit`'s memory
+    envelope for dispatches that hold more live bytes per scene than the
+    change-head forward it was set for.
+
+    ``shard = (rank, world)``: every group takes up to ``world`` times the
+    envelope, is padded to a multiple of ``world`` with zero-valid scenes,
+    and rank ``rank`` dispatches its contiguous share (the module
+    docstring). Default: this process's rank in its world, with each
+    group's counts summed over the ranks; an explicit ``shard`` counts that
+    share alone (what one rank contributes, reproduced in one process)."""
+    if shard is None:
+        rank, world, reduce = _group.rank(), _group.world_size(), True
+    else:
+        (rank, world), reduce = shard, False
     pending: dict = {}
     inflight: list = []
 
+    def consume() -> None:
+        counts = inflight.pop(0).sum(dim=0)
+        if reduce:
+            _group.all_reduce_(counts)
+        accumulate(counts)
+
     def dispatch(group: list) -> None:
-        arrs = tuple(np.stack([g[k] for g in group]) for k in keys)
+        share = -(-len(group) // world)
+        mine = group[rank * share:(rank + 1) * share]
+        arrs = tuple(np.stack([g[k] for g in mine]
+                              + [np.zeros_like(group[0][k])] * (share - len(mine)))
+                     for k in keys)
         if inflight:  # bound device residency to one group + one staged
-            accumulate(inflight.pop(0))
+            consume()
         inflight.append(run_group(arrs))
 
     for wire in wires:
@@ -157,8 +189,8 @@ def _stream_wire_groups(wires, keys: tuple, run_group, accumulate,
         wire_bytes = sum(v.nbytes for v in wire.values()
                          if isinstance(v, np.ndarray))
         host_cap = max(1, HOST_WIRE_BUDGET_BYTES // max(1, 2 * wire_bytes))
-        target = min(max(1, eval_group_limit(wire['x1'].shape[1:]) // group_scale),
-                     host_cap)
+        target = min(max(1, eval_group_limit(wire['x1'].shape[1:]) // group_scale)
+                     * world, host_cap)
         if len(group) >= target:
             dispatch(group)  # np.stack copies, so the list can be reused
             group.clear()
@@ -166,38 +198,42 @@ def _stream_wire_groups(wires, keys: tuple, run_group, accumulate,
         if group:
             dispatch(group)
     while inflight:
-        accumulate(inflight.pop(0))
+        consume()
 
 
 def _measure_wired(model, ds, measurer: MultiThresholdMetric, bucket: int,
-                   device: torch.device) -> MultiThresholdMetric:
+                   device: torch.device, shard=None) -> MultiThresholdMetric:
     """Streaming group evaluation over ``ds.eval_wire`` wires with float64
-    host accumulation of the per-scene kernel counts."""
+    host accumulation of the kernel's counts."""
     thr = torch.as_tensor(measurer.thresholds, device=device)
     _stream_wire_groups(
         (ds.eval_wire(i, bucket) for i in range(len(ds))),
         ('x1', 'x2', 'y', 'valid'),
         run_group=lambda arrs: _eval_wire_counts(model, *arrs, thr, device),
         accumulate=lambda counts: measurer.add_counts(
-            *counts.cpu().numpy().astype(np.float64).sum(axis=0)))
+            *counts.cpu().numpy().astype(np.float64)),
+        shard=shard)
     return measurer
 
 
 def run_measurer(model, ds, thresholds, batch_scenes: bool = True,
-                 bucket: int = EVAL_BUCKET, device=None) -> MultiThresholdMetric:
+                 bucket: int = EVAL_BUCKET, device=None,
+                 shard=None) -> MultiThresholdMetric:
     """Full-scene confusion accumulation over a dataset.
 
     A cache-backed :class:`.data.dataset.MultimodalCDDataset` takes the wire
-    path (:func:`_measure_wired`). Item lists and cache-disabled datasets
-    take the item path: padded float32 items, scenes of one padded shape
-    stacked into one forward (``batch_scenes=False``: one scene per
-    forward), counts per scene."""
+    path (:func:`_measure_wired`), sharded over the ranks of a
+    multi-process world (``shard``: :func:`_stream_wire_groups`). Item
+    lists and cache-disabled datasets take the item path, which every rank
+    runs whole: padded float32 items, scenes of one padded shape stacked
+    into one forward (``batch_scenes=False``: one scene per forward),
+    counts per scene."""
     device = resolve_device(device)
     _check_model_device(model, device)
     measurer = MultiThresholdMetric(thresholds)
     if batch_scenes and getattr(ds, 'supports_eval_wire', None) is not None \
             and ds.supports_eval_wire():
-        return _measure_wired(model, ds, measurer, bucket, device)
+        return _measure_wired(model, ds, measurer, bucket, device, shard)
 
     def flush(chunk: list) -> None:
         probs = eval_forward(model,
@@ -342,7 +378,7 @@ def _pooled_dualtask_counts(model, wires, device) -> dict:
     totals = {k: np.zeros(3, np.float64) for k in ("change", "change_sem", "sem")}
 
     def accumulate(counts: torch.Tensor) -> None:
-        pooled = counts.cpu().numpy().astype(np.float64).sum(axis=0)   # (4, 3)
+        pooled = counts.cpu().numpy().astype(np.float64)   # (4, 3)
         for row, k in zip(pooled, _DUALTASK_BLOCKS):
             totals["sem" if k.startswith("sem_") else k] += row
 

@@ -26,6 +26,18 @@ its running statistics twice, in call order, as flax does. While
 stage, ``MODEL.REMAT``) the module normalises as before but leaves
 ``running_mean``, ``running_var`` and ``num_batches_tracked`` alone, so a
 step moves them once, as the plain step does.
+
+Sync-BN (``sync``, the default, as ``MODEL.SYNC_BN: True`` in the JAX
+package): in a world of more than one rank (:mod:`..parallel`) the
+forward's ``(Σx, Σx²)`` and the backward's ``(Σdy, Σdy·x)`` are summed over
+the ranks, each as one flat ``2C`` float32 all-reduce, and N is the global
+count (every rank holds an equal share of the batch, so N is the world
+size times the local count). Mean, variance, running statistics and
+``dx`` then follow the formulas above over the global batch; the weight
+and bias gradients stay the rank's own share, which the step's gradient
+all-reduce sums. Under ``MODEL.REMAT`` the recompute runs the forward's
+all-reduce again, in the same order on every rank. With ``sync`` off each
+rank normalises over its own rows and nothing is reduced.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bn_stats import bn_stats
+from ..parallel import group
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -47,11 +60,16 @@ class _TrainBatchNorm(torch.autograd.Function):
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps):
-        """``running_mean`` / ``running_var`` None: no running update."""
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps,
+                sync):
+        """``running_mean`` / ``running_var`` None: no running update;
+        ``sync``: sum the statistics over the ranks."""
         x = x.contiguous()
         n = x.numel() // x.shape[1]
         s1, s2 = bn_stats(x, x)
+        if sync:
+            s1, s2 = _summed_over_ranks(s1, s2)
+            n *= group.world_size()
         mean = s1 / n
         var = torch.clamp_min(s2 / n - mean * mean, 0.0)
         rstd = torch.rsqrt(var + eps)
@@ -64,6 +82,7 @@ class _TrainBatchNorm(torch.autograd.Function):
                 running_var.mul_(1.0 - momentum).add_(var, alpha=momentum)
         ctx.save_for_backward(x, weight, mean, rstd)
         ctx.n = n
+        ctx.sync = sync
         return y.to(x.dtype)
 
     @staticmethod
@@ -75,18 +94,32 @@ class _TrainBatchNorm(torch.autograd.Function):
         s1, s2 = bn_stats(dy, x)
         dbias = s1
         dweight = rstd * (s2 - mean * s1)
+        if ctx.sync:    # this rank's dweight, dbias; dx needs the global sums
+            s1, s2 = _summed_over_ranks(s1, s2)
+            dw_all = rstd * (s2 - mean * s1)
+        else:
+            dw_all = dweight
         # dx = weight·rstd·(dy - Σdy/N - x̂·dweight/N), x̂ = (x - mean)·rstd
         t = x.to(torch.float32, copy=True)
-        t.sub_(_per_channel(mean)).mul_(_per_channel(rstd * dweight / n))
+        t.sub_(_per_channel(mean)).mul_(_per_channel(rstd * dw_all / n))
         dx = dy.to(torch.float32, copy=True)
         dx.sub_(_per_channel(s1 / n)).sub_(t).mul_(_per_channel(weight * rstd))
-        return dx.to(dy.dtype), dweight, dbias, None, None, None, None
+        return dx.to(dy.dtype), dweight, dbias, None, None, None, None, None
+
+
+def _summed_over_ranks(s1: torch.Tensor, s2: torch.Tensor):
+    """``(s1, s2)`` summed over the ranks through one flat ``2C`` float32
+    all-reduce."""
+    flat = group.all_reduce_(torch.cat([s1, s2]))
+    return flat[:s1.numel()], flat[s1.numel():]
 
 
 class BatchNorm2d(nn.Module):
     """``nn.BatchNorm2d(num_features, eps, momentum)`` with flax's training
     semantics (module docstring). ``momentum`` is torch's: the weight of
-    the new batch statistic (0.1 == flax momentum 0.9)."""
+    the new batch statistic (0.1 == flax momentum 0.9). ``sync`` (default
+    True; the factory sets ``MODEL.SYNC_BN``) reduces the statistics over
+    the ranks of a multi-process world."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -101,15 +134,17 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
         self.recomputing = False
+        self.sync = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        sync = self.sync and group.world_size() > 1
         if self.recomputing:
             return _TrainBatchNorm.apply(x, self.weight, self.bias, None, None,
-                                         self.momentum, self.eps)
+                                         self.momentum, self.eps, sync)
         self.num_batches_tracked.add_(1)
         return _TrainBatchNorm.apply(x, self.weight, self.bias,
                                      self.running_mean, self.running_var,
-                                     self.momentum, self.eps)
+                                     self.momentum, self.eps, sync)

@@ -11,7 +11,8 @@ trick for the TPU's matrix units, and the port always builds the
 reference-shaped graph. ``MODEL.REMAT: True`` checkpoints every stem, Down
 and Up stage (:func:`.blocks.set_remat`) of every type but
 ``siamunet_diff``, which does not take the flag, as in the JAX package's
-factory.py:62-64.
+factory.py:62-64. ``MODEL.SYNC_BN`` (default True) sets every BatchNorm's
+``sync``: in a multi-process world, statistics over the global batch.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from ..device import resolve_device
 from . import networks
+from .batchnorm import BatchNorm2d
 from .blocks import set_remat
 
 
@@ -64,6 +66,10 @@ def create_network(cfg, device=None, generator: torch.Generator | None = None):
         generator=generator, n_s1_bands=len(cfg.DATALOADER.S1_BANDS))
     if remat_applies(cfg):
         set_remat(model)
+    sync = bool(cfg.MODEL.get("SYNC_BN", True))
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync = sync
     return model.to(device)
 
 

@@ -301,15 +301,19 @@ def siamunet_diff_flax_names() -> dict:
     return names
 
 
-def spatial_dropout(x: torch.Tensor, p: float,
-                    generator: torch.Generator) -> torch.Tensor:
+def spatial_dropout(x: torch.Tensor, p: float, generator: torch.Generator,
+                    rows: tuple[int, int] | None = None) -> torch.Tensor:
     """flax's ``nn.Dropout(p, broadcast_dims=(1, 2))`` on NHWC (the JAX
     package's networks.py:304) for NCHW: one keep draw per (sample,
     channel), ``uniform < 1 - p`` from ``generator`` (on ``x``'s device);
-    kept channels divided by ``1 - p``, dropped ones zero."""
+    kept channels divided by ``1 - p``, dropped ones zero. ``rows = (start,
+    total)``: ``x`` holds rows ``[start, start + B)`` of a global batch of
+    ``total`` (one rank's share); the draw is the global batch's, and
+    ``x`` takes its rows of it."""
     keep = 1.0 - p
-    mask = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
-                      device=x.device) < keep
+    start, total = (0, x.shape[0]) if rows is None else rows
+    mask = torch.rand((total, x.shape[1], 1, 1), generator=generator,
+                      device=x.device)[start:start + x.shape[0]] < keep
     return torch.where(mask, x / keep, x.new_zeros(()))
 
 
@@ -363,29 +367,32 @@ class SiamUnetDiff(nn.Module):
                 ch = out
         lecun_normal_(self, generator)
 
-    def _unit(self, x: torch.Tensor, name: str, generator) -> torch.Tensor:
+    def _unit(self, x: torch.Tensor, name: str, generator, rows) -> torch.Tensor:
         """conv{name} -> bn{name} -> ReLU -> spatial dropout (train mode)."""
         x = torch.relu(getattr(self, f"bn{name}")(getattr(self, f"conv{name}")(x)))
         if self.training:
-            x = spatial_dropout(x, SIAMUNET_DIFF_DROPOUT, generator)
+            x = spatial_dropout(x, SIAMUNET_DIFF_DROPOUT, generator, rows)
         return x
 
-    def _encode(self, x: torch.Tensor, generator):
+    def _encode(self, x: torch.Tensor, generator, rows):
         skips = []
         for s, (_, n) in enumerate(SIAMUNET_DIFF_ENCODER, start=1):
             for i in range(1, n + 1):
-                x = self._unit(x, f"{s}{i}", generator)
+                x = self._unit(x, f"{s}{i}", generator, rows)
             skips.append(x)
             x = F.max_pool2d(x, 2)
         return x, skips
 
     def forward(self, x_t1: torch.Tensor, x_t2: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
+        """``rows``: the inputs are one rank's rows of a global batch
+        (:func:`spatial_dropout`)."""
         if self.training and generator is None:
             raise ValueError("SiamUnetDiff in train mode draws its dropout "
                              "masks from an explicit generator; pass one")
-        _, skips1 = self._encode(x_t1, generator)
-        x, skips2 = self._encode(x_t2, generator)   # the t2 bottleneck
+        _, skips1 = self._encode(x_t1, generator, rows)
+        x, skips2 = self._encode(x_t2, generator, rows)   # the t2 bottleneck
         for s, _, convs in SIAMUNET_DIFF_DECODER:
             x = getattr(self, f"upconv{s}")(x)
             skip = (skips1[s - 1] - skips2[s - 1]).abs()
@@ -397,5 +404,5 @@ class SiamUnetDiff(nn.Module):
                 if width is None:
                     x = getattr(self, f"conv{s}{j}d")(x)
                 else:
-                    x = self._unit(x, f"{s}{j}d", generator)
+                    x = self._unit(x, f"{s}{j}d", generator, rows)
         return x.float()

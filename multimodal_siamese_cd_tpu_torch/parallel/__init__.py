@@ -1,0 +1,7 @@
+"""Data parallelism over processes, one per card (the JAX package's
+``parallel/``: its device mesh becomes a ``torch.distributed`` world)."""
+
+from .distributed import (local_device, maybe_initialize_distributed,  # noqa: F401
+                          process_shard, shutdown)
+from .group import (all_reduce_, all_reduce_flat_, barrier,  # noqa: F401
+                    batch_rows, broadcast_, global_rows, rank, world_size)

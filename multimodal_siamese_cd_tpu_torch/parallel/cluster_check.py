@@ -1,0 +1,379 @@
+"""Subprocess worker certifying the port's multi-process path (the JAX
+package's ``parallel/cluster_check.py``).
+
+Run as::
+
+    python -m multimodal_siamese_cd_tpu_torch.parallel.cluster_check \\
+        <rank> <world> <rendezvous_file> <job_file> <out_dir>
+
+:func:`launch_cluster` starts ``world`` such processes. Each joins the world
+through the shipped env-gated path (:func:`.distributed.
+maybe_initialize_distributed`, a ``file://`` rendezvous in a fresh temporary
+directory, so no port is picked and none can be taken) and runs the job's
+cases in order, each rank on its rows: ``step`` takes optimizer steps with
+the rank feeding its rows of the global batch, ``measurer`` and
+``dualtask_counts`` run the wire evaluations sharded over the ranks,
+``train`` runs :func:`..trainers.run_training`, ``errors`` records the
+messages of the errors a world raises. :func:`run_case` runs a case in the
+calling process, where, without a process group, it is the one-process
+reference of the same case. Each rank writes ``{name}.rank{rank}.pt`` into
+``out_dir`` and prints::
+
+    RESULT <rank> <loss> <param_abs_sum>      (a step case)
+    EVALF1 <rank> <f1>                        (a measurer case)
+
+A job (``torch.save``'d, tensors and plain values only) is ``{"device":
+"cpu" | "cuda", "backend": "gloo" | "nccl", "cases": [case, ...]}``; a case
+is ``{"name", "kind", "config", "overrides", "paths", ...}`` with the keys its kind
+reads (:func:`run_case`). On the CPU each worker runs one torch thread.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    rank, world, rendezvous = int(argv[0]), int(argv[1]), argv[2]
+    job = torch.load(argv[3], weights_only=True)
+    out_dir = Path(argv[4])
+    cuda = job["device"] == "cuda"
+    # ranks share the cards round-robin: more ranks than cards (the one-card
+    # check) is a world only gloo can run
+    local = rank % torch.cuda.device_count() if cuda else rank
+    os.environ.update(MSCD_DISTRIBUTED="1", WORLD_SIZE=str(world),
+                      RANK=str(rank), LOCAL_RANK=str(local))
+    if not cuda:
+        torch.set_num_threads(1)
+
+    from . import group
+    from .distributed import maybe_initialize_distributed, shutdown
+
+    maybe_initialize_distributed(job["backend"], init_method=f"file://{rendezvous}")
+    if (group.world_size(), group.rank()) != (world, rank):
+        raise RuntimeError(f"joined as rank {group.rank()} of {group.world_size()}, "
+                           f"expected rank {rank} of {world}")
+    try:
+        for case in job["cases"]:
+            out = run_case(case, job["device"])
+            torch.save(out, out_dir / f"{case['name']}.rank{rank}.pt")
+            if "param_abs_sum" in out:
+                print(f"RESULT {rank} {out['metrics']['loss']:.10f} "
+                      f"{out['param_abs_sum']:.6f}", flush=True)
+            if "f1" in out:
+                print(f"EVALF1 {rank} {out['f1']:.10f}", flush=True)
+        group.barrier()
+    finally:
+        shutdown()
+
+
+def case_cfg(case: dict):
+    """The case's port config: ``config`` loaded, ``overrides`` merged,
+    ``paths`` (``{"DATASET": ..., "OUTPUT": ...}``) set."""
+    from ..config import load_cfg
+
+    cfg = load_cfg(case["config"])
+    cfg.merge_from_list(list(case.get("overrides", [])))
+    for key, value in case.get("paths", {}).items():
+        setattr(cfg.PATHS, key, value)
+    return cfg
+
+
+def _model(case: dict, cfg, device):
+    """Model + AdamW: from ``checkpoint`` (a file), ``state`` (a state
+    dict), or drawn from ``cfg.SEED``."""
+    from .. import checkpoints, train_lib
+    from ..models.factory import create_network
+
+    if "checkpoint" in case:
+        model, optimizer, _ = checkpoints.load_checkpoint(
+            None, cfg, net_file=case["checkpoint"], device=device)
+        return model, optimizer
+    model = create_network(cfg, device=device,
+                           generator=torch.Generator().manual_seed(cfg.SEED))
+    if "state" in case:
+        model.load_state_dict(case["state"], strict=True)
+    return model, train_lib.make_optimizer(model, cfg)
+
+
+def _keep_first_launches(kept: list):
+    """A stand-in for ``models.batchnorm.bn_stats`` that launches the
+    wrapper (which counts) and keeps host copies of the first launch of
+    every (shape, dtype, a is b)."""
+    from ..ops.bn_stats import bn_stats
+
+    seen = set()
+
+    def watched(a, b):
+        out = bn_stats(a, b)
+        key = (tuple(a.shape), str(a.dtype), a is b)
+        if key not in seen:
+            seen.add(key)
+            host = lambda t: t.detach().to("cpu", copy=True)   # noqa: E731
+            kept.append({"shape": list(a.shape), "dtype": str(a.dtype)[6:],
+                         "same": a is b, "a": host(a),
+                         "b": None if a is b else host(b),
+                         "out": [host(o) for o in out]})
+        return out
+
+    return watched
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _step_case(case: dict, device) -> dict:
+    """``steps`` optimizer steps (default 1) of ``regime`` on the global
+    batch ``stack`` / ``is_labeled``, this rank feeding its rows; the
+    metrics of the last, the (summed) gradients, BatchNorm buffers and
+    parameters after it, the bn_stats launches. ``keep_bn``: also the
+    first launch of each signature (:func:`_keep_first_launches`);
+    ``timed_steps``: then the median host time of that many more steps
+    and, over one more, the host time inside all-reduces (each preceded by
+    a device synchronisation), and the peak device memory (on the card)."""
+    import torch.distributed as dist
+
+    from .. import train_lib
+    from ..models import batchnorm
+    from ..ops.bn_stats import bn_stats
+    from . import group
+
+    cfg = case_cfg(case)
+    model, optimizer = _model(case, cfg, device)
+    step_fn = train_lib.make_train_step(model, optimizer, cfg, case["regime"])
+    rows = group.batch_rows(case["stack"].shape[0],
+                            int(cfg.TRAINER.get("GRAD_ACCUM", 1)))
+    index = torch.as_tensor(rows)
+    stack = case["stack"][index].to(device)
+    is_labeled = case["is_labeled"][index].to(device)
+    kept: list = []
+    wrapper = batchnorm.bn_stats
+    if case.get("keep_bn"):
+        batchnorm.bn_stats = _keep_first_launches(kept)
+    try:
+        _sync(device)
+        bn_stats.launches = 0
+        for i in range(int(case.get("steps", 1))):
+            metrics = step_fn(stack, is_labeled, i)
+        _sync(device)
+        launches = bn_stats.launches
+    finally:
+        batchnorm.bn_stats = wrapper
+    out = {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads": {n: p.grad.detach().float().cpu()
+                  for n, p in model.named_parameters()},
+        "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+        "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
+        "launches": launches,
+        "bn_kept": kept,
+        "param_abs_sum": float(sum(p.detach().abs().double().sum()
+                                   for p in model.parameters())),
+    }
+    n_timed = int(case.get("timed_steps", 0))
+    cuda = torch.device(device).type == "cuda"
+    if n_timed and cuda:
+        torch.cuda.reset_peak_memory_stats()
+    if n_timed:
+        times = []
+        for i in range(n_timed):
+            _sync(device)
+            t0 = time.perf_counter()
+            step_fn(stack, is_labeled, i)
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+        spent, calls, nbytes = [0.0], [0], [0]
+        all_reduce = dist.all_reduce
+
+        def timed(tensor, *args, **kwargs):
+            _sync(device)
+            t0 = time.perf_counter()
+            work = all_reduce(tensor, *args, **kwargs)
+            _sync(device)
+            spent[0] += time.perf_counter() - t0
+            calls[0] += 1
+            nbytes[0] += tensor.numel() * tensor.element_size()
+            return work
+
+        dist.all_reduce = timed
+        try:
+            _sync(device)
+            t0 = time.perf_counter()
+            step_fn(stack, is_labeled, n_timed)
+            _sync(device)
+            instrumented = time.perf_counter() - t0
+        finally:
+            dist.all_reduce = all_reduce
+        out["timing"] = {"step_s": float(np.median(times)), "steps_s": times,
+                         "instrumented_s": instrumented,
+                         "all_reduce_s": spent[0], "all_reduce_calls": calls[0],
+                         "all_reduce_bytes": nbytes[0],
+                         "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+    return out
+
+
+def _eval_dataset(case: dict, cfg):
+    from ..data.dataset import MultimodalCDDataset
+
+    return MultimodalCDDataset(cfg, case.get("split", "validation"),
+                               no_augmentations=True, dataset_mode="first_last",
+                               disable_multiplier=True, disable_unlabeled=True)
+
+
+def _measurer_case(case: dict, device) -> dict:
+    """``evaluation.run_measurer`` over the case's split at threshold 0.5,
+    sharded over the ranks: the counts, F1 and confusion launches."""
+    from .. import evaluation
+    from ..ops.confusion import confusion_counts
+
+    cfg = case_cfg(case)
+    model, _ = _model(case, cfg, device)
+    ds = _eval_dataset(case, cfg)
+    _sync(device)
+    confusion_counts.launches = 0
+    m = evaluation.run_measurer(model, ds, np.asarray([0.5]),
+                                bucket=evaluation.eval_bucket(cfg),
+                                device=device, shard=case.get("shard"))
+    _sync(device)
+    out = {k: torch.as_tensor(np.asarray(getattr(m, k), np.float64))
+           for k in ("TP", "TN", "FP", "FN")}
+    out["f1"] = float(np.asarray(m.compute_f1()).max())
+    out["launches"] = confusion_counts.launches
+    return out
+
+
+def _dualtask_counts_case(case: dict, device) -> dict:
+    from .. import evaluation
+
+    cfg = case_cfg(case)
+    model, _ = _model(case, cfg, device)
+    counts = evaluation.dualtask_quantitative_counts(
+        model, _eval_dataset(case, cfg), bucket=evaluation.eval_bucket(cfg),
+        device=device)
+    return {k: torch.tensor(v, dtype=torch.float64) for k, v in counts.items()}
+
+
+def _train_case(case: dict, device) -> dict:
+    """``trainers.run_training`` on the case's config, logging to
+    ``{PATHS.OUTPUT}/logs`` from rank 0 alone, as the training CLIs do."""
+    from .. import trainers, wandb_compat
+    from ..ops.bn_stats import bn_stats
+    from . import group
+
+    cfg = case_cfg(case)
+    if group.rank() == 0:
+        wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl",
+                          out_dir=cfg.PATHS.OUTPUT)
+    bn_stats.launches = 0
+    try:
+        trainers.run_training(cfg, case["regime"], device=device)
+    finally:
+        wandb_compat.finish()
+    return {"launches": bn_stats.launches}
+
+
+def _errors_case(case: dict, device) -> dict:
+    """The messages of the errors a world of several ranks raises: a
+    GRAD_ACCUM micro-batch that does not split over the ranks (batch 2,
+    GRAD_ACCUM 2), ``SYNC_BN: False`` and the trainer with a batch the
+    world does not divide (batch 3)."""
+    from .. import train_lib, trainers
+
+    def message(fn) -> str:
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return ""
+
+    cfg = case_cfg(case)
+    model, optimizer = _model(case, cfg, device)
+    nosync, odd = cfg.clone(), cfg.clone()
+    nosync.MODEL.SYNC_BN = False
+    nosync.TRAINER.BATCH_SIZE = odd.TRAINER.BATCH_SIZE = 3
+    nosync_model, nosync_optimizer = _model(case, nosync, device)
+    accum = cfg.clone()
+    accum.TRAINER.GRAD_ACCUM = 2
+    step_fn = train_lib.make_train_step(model, optimizer, accum, "supervised")
+    stack = case["stack"][:1].to(device)
+    return {
+        "accum": message(lambda: step_fn(stack, None, 0)),
+        "sync_bn": message(lambda: train_lib.make_train_step(
+            nosync_model, nosync_optimizer, nosync, "supervised")),
+        "batch": message(lambda: trainers.training_world(odd)),
+    }
+
+
+_CASES = {"step": _step_case, "measurer": _measurer_case,
+          "dualtask_counts": _dualtask_counts_case, "train": _train_case,
+          "errors": _errors_case}
+
+
+def run_case(case: dict, device="cpu") -> dict:
+    """Run one case of a job on ``device``: in a worker, as this rank; in a
+    process without a process group, as the one-process reference."""
+    return _CASES[case["kind"]](case, device)
+
+
+def launch_cluster(job: dict, out_dir, world: int = 2, timeout: float = 600):
+    """Run ``job`` on a world of ``world`` worker processes (this module,
+    ``python -m ... <rank> <world> <rendezvous_file> <job_file>
+    <out_dir>``) and return ``(rcs, [(stdout, stderr), ...])``; the
+    results are in ``out_dir``.
+
+    The rendezvous is a ``file://`` in a fresh temporary directory (no
+    port to pick, so no race for one). ``timeout`` bounds the whole launch,
+    one shared deadline: a worker still running then is killed, with
+    every other, and its return code is not 0. Each worker runs from, and
+    imports from, the directory holding this package."""
+    repo_root = Path(__file__).resolve().parents[2]
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    job_file = out_dir / "job.pt"
+    torch.save(job, job_file)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(repo_root), env.get("PYTHONPATH")) if p)
+    rdv_dir = tempfile.mkdtemp(prefix="mscd_rendezvous_")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", __name__, str(rank), str(world),
+         str(Path(rdv_dir) / "init"), str(job_file), str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(repo_root)) for rank in range(world)]
+    deadline = time.monotonic() + timeout
+    results = []
+    try:
+        for p in procs:
+            try:
+                results.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                # a hung worker blocks its peers in the same collective:
+                # reap them all
+                for q in procs:
+                    if q.poll() is None:
+                        q.kill()
+                results.append(p.communicate())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(rdv_dir, ignore_errors=True)
+    return [p.returncode for p in procs], results
+
+
+if __name__ == "__main__":
+    main()

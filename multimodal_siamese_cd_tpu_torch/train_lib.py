@@ -15,7 +15,9 @@ import torch
 
 from . import losses
 from .data.augmentations import apply_augmentation, draw_augmentation
+from .models.batchnorm import BatchNorm2d
 from .models.factory import compute_dtype
+from .parallel import group
 
 
 def make_optimizer(model, cfg) -> torch.optim.AdamW:
@@ -90,17 +92,26 @@ def augment_generator(seed: int, step: int, device: torch.device) -> torch.Gener
 
 
 def augment(stack: torch.Tensor, cfg, layout: dict, dtype: torch.dtype,
-            generator: torch.Generator) -> torch.Tensor:
+            generator: torch.Generator,
+            rows: np.ndarray | None = None) -> torch.Tensor:
     """Cast the wire to ``dtype`` and apply the config's per-sample device
     augmentation (flips and rotations exact in any dtype; labels {0, 1}
-    exact in bf16)."""
+    exact in bf16). ``rows``: ``stack`` holds these rows of a global batch
+    of ``rows.size · world`` (one rank's share, :func:`..parallel.
+    batch_rows`); the decisions are drawn for the global batch and each
+    row takes its own."""
     a = cfg.AUGMENTATION
     stack = stack.to(dtype)
+    n = stack.shape[0] if rows is None else stack.shape[0] * group.world_size()
     decisions = draw_augmentation(
-        stack.shape[0], layout["n_img"], flip=bool(a.RANDOM_FLIP),
+        n, layout["n_img"], flip=bool(a.RANDOM_FLIP),
         rotate=bool(a.RANDOM_ROTATE), color_shift=bool(a.COLOR_SHIFT),
         gamma=bool(a.GAMMA_CORRECTION), generator=generator, dtype=dtype,
         device=stack.device)
+    if rows is not None:
+        index = torch.as_tensor(rows, device=stack.device)
+        decisions = {k: None if v is None else v[index]
+                     for k, v in decisions.items()}
     return apply_augmentation(stack, n_img_channels=layout["n_img"],
                               **decisions)
 
@@ -137,33 +148,66 @@ def _make_step(model, optimizer, cfg, losses_of):
     head) gets a zero gradient before the update, as ``jax.value_and_grad``
     gives it in the JAX package: ``optax.adamw`` then still decays it by
     ``lr·wd`` every step, where ``torch.optim.AdamW`` would skip a parameter
-    whose gradient is None."""
+    whose gradient is None.
+
+    In a world of W > 1 ranks (:mod:`.parallel`) the step computes what the
+    JAX package's GSPMD step computes on the global batch. ``stack`` holds
+    this rank's rows of it (:func:`.parallel.batch_rows`: contiguous
+    shares of each micro-batch); the augmentation and dropout decisions
+    are drawn for the global batch and each rank keeps its rows. Each
+    micro-batch's outputs, labels and label mask are made global (every
+    rank fills its rows of zeroed global buffers, one all-reduce), with
+    the rank's live outputs put back in its own rows, and the unchanged
+    ``losses_of`` runs on the global batch: the ratio losses, the
+    semi-supervised presence gates and the metrics are the global ones,
+    equal on every rank. A rank's backward then gives its rows' share of
+    the gradient; one flat all-reduce sums the shares (after the last
+    micro-batch, zero gradients of unreached parameters included) before
+    AdamW. BatchNorm is synchronised over the ranks (``MODEL.SYNC_BN``,
+    default True); with ``SYNC_BN: False`` each rank normalises over its
+    own rows and every rank then takes rank 0's running statistics, as the
+    JAX package keeps group 0's (train_lib.py:151-181)."""
     accum = int(cfg.TRAINER.get("GRAD_ACCUM", 1))
     layout = stack_layout(cfg)
     device = next(model.parameters()).device
     dtype = compute_dtype(cfg) if device.type == "cuda" else torch.float32
+    world, rank = group.world_size(), group.rank()
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    # the model's BatchNorms (the factory set them from MODEL.SYNC_BN) decide
+    sync_bn = all(m.sync for m in bns)
+    if world > 1 and not sync_bn and cfg.TRAINER.BATCH_SIZE % world:
+        raise ValueError(
+            f"MODEL.SYNC_BN: False needs TRAINER.BATCH_SIZE "
+            f"({cfg.TRAINER.BATCH_SIZE}) divisible by the {world}-device mesh")
+    bn_buffers = [b for m in bns for b in (m.running_mean, m.running_var)]
 
     # a model with dropout (siamunet_diff) draws its masks from the step's
     # generator, after the augmentation's draws
     draws_dropout = getattr(model, "draws_dropout", False)
 
     def step(stack: torch.Tensor, is_labeled, global_step: int) -> dict:
-        if stack.shape[0] % accum:
-            raise ValueError(f"TRAINER.GRAD_ACCUM={accum} must divide the "
-                             f"batch size {stack.shape[0]}")
+        batch = stack.shape[0] * world
+        rows = group.batch_rows(batch, accum, rank, world)
+        share = stack.shape[0] // accum        # this rank's rows per micro-batch
         model.train()
         generator = augment_generator(cfg.SEED, global_step, device)
-        stack_aug = augment(stack, cfg, layout, dtype, generator)
+        stack_aug = augment(stack, cfg, layout, dtype, generator,
+                            rows if world > 1 else None)
         labs = [None] * accum if is_labeled is None else is_labeled.chunk(accum)
         optimizer.zero_grad(set_to_none=True)
         micro = []
         for part, lab in zip(stack_aug.chunk(accum), labs):
             x_t1, x_t2, *labels = split_stack(part, layout)
+            kwargs = {}
+            if draws_dropout:
+                kwargs["generator"] = generator
+                if world > 1:
+                    kwargs["rows"] = (rank * share, share * world)
             with autocast(dtype, device):
-                if draws_dropout:
-                    outputs = model(x_t1, x_t2, generator=generator)
-                else:
-                    outputs = model(x_t1, x_t2)
+                outputs = model(x_t1, x_t2, **kwargs)
+            if world > 1:
+                outputs, lab, labels = _global_batch(outputs, lab, labels,
+                                                     rank * share, share * world)
             metrics = losses_of(outputs, lab, *labels)
             loss = metrics["loss"]
             (loss / accum if accum > 1 else loss).backward()
@@ -171,10 +215,31 @@ def _make_step(model, optimizer, cfg, losses_of):
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if world > 1:
+            group.all_reduce_flat_([p.grad for p in model.parameters()])
         optimizer.step()
+        if world > 1 and not sync_bn:
+            group.broadcast_(bn_buffers, src=0)
         return micro[0] if accum == 1 else _reduce_window_metrics(micro)
 
     return step
+
+
+def _global_batch(outputs, lab, labels, start: int, total: int):
+    """One micro-batch's ``(outputs, is_labeled, labels)`` over the global
+    batch of ``total`` rows, of which this rank holds ``[start, start +
+    k)``: float32 global copies (:func:`.parallel.global_rows`, one
+    all-reduce), the outputs with this rank's live rows put back in, so
+    the backward reaches them."""
+    heads = outputs if isinstance(outputs, tuple) else (outputs,)
+    live = [h.float() for h in heads]
+    fixed = list(labels) + ([] if lab is None else [lab])
+    full = group.global_rows(live + fixed, start, total)
+    spliced = tuple(torch.cat([g[:start], h, g[start + h.shape[0]:]])
+                    for g, h in zip(full, live))
+    out = spliced if isinstance(outputs, tuple) else spliced[0]
+    rest = full[len(live):]
+    return out, (None if lab is None else rest[-1]), rest[:len(labels)]
 
 
 def _reduce_window_metrics(metrics: list) -> dict:

@@ -7,13 +7,20 @@ Same contract as the reference train_supervised.py::
         [--device cpu] [KEY VALUE ...]
 
 Trains on the CUDA card unless ``--device`` names another torch device.
+On several cards, one process per card::
+
+    MSCD_DISTRIBUTED=1 torchrun --nproc_per_node=N \\
+        -m multimodal_siamese_cd_tpu_torch.train_supervised -c <config> ...
+
+(:mod:`multimodal_siamese_cd_tpu_torch.parallel`; ``TRAINER.BATCH_SIZE``
+is the global batch).
 """
 
 import os
 import sys
 
-from multimodal_siamese_cd_tpu_torch import (experiment_manager, parsers,
-                                             trainers, wandb_compat)
+from multimodal_siamese_cd_tpu_torch import (experiment_manager, parallel,
+                                             parsers, trainers, wandb_compat)
 
 
 def main(argv=None) -> None:
@@ -28,6 +35,9 @@ def run_cli(regime: str, argv=None) -> None:
     cfg = experiment_manager.setup_cfg(args)
 
     trainers.seed_everything(cfg.SEED)
+    # a multi-process run (MSCD_DISTRIBUTED=1 under torchrun) logs from
+    # rank 0 alone
+    trainers.training_world(cfg)
 
     wandb_compat.init(
         name=cfg.NAME,
@@ -35,7 +45,7 @@ def run_cli(regime: str, argv=None) -> None:
         entity='multimodal_siamese_cd',
         project=args.project,
         tags=['ssl', 'cd', 'siamese', 'spacenet7'],
-        mode='online' if not cfg.DEBUG else 'disabled',
+        mode='online' if not cfg.DEBUG and parallel.rank() == 0 else 'disabled',
         out_dir=cfg.PATHS.OUTPUT,
     )
 
@@ -48,6 +58,7 @@ def run_cli(regime: str, argv=None) -> None:
             os._exit(0)
     finally:
         wandb_compat.finish()
+        parallel.shutdown()
 
 
 if __name__ == '__main__':

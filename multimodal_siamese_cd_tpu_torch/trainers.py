@@ -16,6 +16,13 @@ card until a log window closes, then come back in one host fetch.
 
 Every key of :data:`.config.EXTENSION_KEYS` works, raises, or is printed as
 a declared no-op when the trainer starts (:func:`declare_knobs`).
+
+Data parallelism (:mod:`.parallel`; the JAX package's ``_training_mesh``):
+with ``MSCD_DISTRIBUTED=1`` the trainer joins the process group of one
+process per card (``torchrun``), each rank loads and steps on its rows of
+every global batch, and the evaluations are sharded over the ranks. Rank 0
+alone writes the checkpoint (the others wait at a barrier); the training
+CLIs log from rank 0 alone.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from .data.dataset import MultimodalCDDataset
 from .data.loader import TrainLoader, prefetch_to_device
 from .device import resolve_device
 from .models.factory import create_network, remat_applies
+from .parallel import group, maybe_initialize_distributed
 
 # Extension keys that change nothing in the port, and why; printed when a
 # config sets them (TRAINER.SPATIAL_SHARDS > 1 and MODEL.REMAT on a model
@@ -42,25 +50,29 @@ DECLARED_NO_OPS = {
     "TRAINER.WEDGE_TIMEOUT": "no-op (it tunes only the TPU dispatch probe of "
                              "STEPS_PER_EXECUTION: auto)",
     "MODEL.BN_AXIS_NAME": "no-op (the axis of the JAX package's shard_map "
-                          "BatchNorm; one device here)",
-    "MODEL.SYNC_BN": "no-op on one device (one BatchNorm group, as the JAX "
-                     "package's bn_group_count gives a one-device mesh)",
+                          "BatchNorm; the port's sync-BN reduces over the "
+                          "process group)",
     "MODEL.PACKED_FULLRES": "no-op (a TPU layout trick with the same "
                             "results; the port builds the reference-shaped "
                             "graph)",
 }
 
 
-def declare_knobs(cfg) -> None:
-    """Print each declared no-op the config sets (:data:`DECLARED_NO_OPS`),
-    the JAX package's data-parallel fall-back warning for
-    ``TRAINER.SPATIAL_SHARDS > 1`` (its trainers.py:64-66: there is one
-    card), and ``MODEL.REMAT`` on a model that does not take it."""
+def declare_knobs(cfg, world: int = 1) -> None:
+    """Print each declared no-op the config sets (:data:`DECLARED_NO_OPS`;
+    ``MODEL.SYNC_BN`` too in a world of one rank), the JAX package's
+    data-parallel fall-back warning for ``TRAINER.SPATIAL_SHARDS > 1`` (its
+    trainers.py:64-66: spatial sharding is not ported), and
+    ``MODEL.REMAT`` on a model that does not take it."""
     for key, what in DECLARED_NO_OPS.items():
         section, name = key.split(".")
         value = cfg[section].get(name, None)
         if value is not None:
             print(f"{name}={value}: {what}")
+    if world == 1 and cfg.MODEL.get('SYNC_BN', None) is not None:
+        print(f"SYNC_BN={cfg.MODEL.SYNC_BN}: no-op on one device (a world of "
+              f"one rank has one BatchNorm group, as the JAX package's "
+              f"bn_group_count gives a one-device mesh)")
     n_space = int(cfg.TRAINER.get('SPATIAL_SHARDS', 1))
     if n_space > 1:
         print(f"warning: device count / batch {cfg.TRAINER.BATCH_SIZE} / "
@@ -111,7 +123,8 @@ class ProfilerHook:
         self._prof.stop()
         out = Path(self.dir)
         out.mkdir(parents=True, exist_ok=True)
-        path = out / f"steps_{self._first}-{self._last}.pt.trace.json"
+        tag = f".rank{group.rank()}" if group.world_size() > 1 else ""
+        path = out / f"steps_{self._first}-{self._last}{tag}.pt.trace.json"
         self._prof.export_chrome_trace(str(path))
         self._prof = None
         print(f"profiler trace of steps [{self._first}, {self._last}) "
@@ -156,9 +169,13 @@ def _create_or_resume(cfg, device: torch.device):
     return model, train_lib.make_optimizer(model, cfg), 0
 
 
-def _loader(cfg) -> TrainLoader:
+def _loader(cfg, world: int) -> TrainLoader:
+    """The training loader; in a world of several ranks, of this rank's rows
+    of every global batch."""
     ds = MultimodalCDDataset(cfg, 'training')
     print(f'Dataset with {len(ds)} samples.')
+    rows = None if world == 1 else group.batch_rows(
+        cfg.TRAINER.BATCH_SIZE, int(cfg.TRAINER.get('GRAD_ACCUM', 1)))
     return TrainLoader(
         ds,
         batch_size=cfg.TRAINER.BATCH_SIZE,
@@ -166,6 +183,7 @@ def _loader(cfg) -> TrainLoader:
         num_workers=0 if cfg.DEBUG else cfg.DATALOADER.NUM_WORKER,
         seed=cfg.SEED,
         worker_type=cfg.DATALOADER.get('WORKER_TYPE', 'thread'),
+        rows=rows,
     )
 
 
@@ -255,17 +273,36 @@ def _window_summary(sets: dict, label_counts: list,
     return out
 
 
+def training_world(cfg) -> int:
+    """Join the process group when ``MSCD_DISTRIBUTED=1``
+    (:func:`.parallel.maybe_initialize_distributed`) and return the world
+    size (the JAX package's ``_training_mesh``, trainers.py:48-80). A
+    global batch the world does not divide raises: there is no fall-back
+    to one rank."""
+    maybe_initialize_distributed()
+    world = group.world_size()
+    if world > 1 and cfg.TRAINER.BATCH_SIZE % world:
+        raise ValueError(
+            f"TRAINER.BATCH_SIZE={cfg.TRAINER.BATCH_SIZE} is not divisible "
+            f"by the {world}-device global mesh of this {world}-process run; "
+            f"pick a divisible batch")
+    return world
+
+
 def run_training(cfg, regime: str, device=None) -> None:
     """Train ``cfg`` in ``regime`` ('supervised', 'semisupervised' or
     'dualtask'; another raises ``ValueError``); ``device`` defaults to the
-    card."""
+    card (this rank's, in a multi-process world: :func:`training_world`)."""
+    world = training_world(cfg)
     device = resolve_device(device)
-    print_run_config(cfg, str(device))
-    declare_knobs(cfg)
+    print_run_config(cfg, f"{device.type}[{world}]")
+    declare_knobs(cfg, world)
 
     model, optimizer, start_step = _create_or_resume(cfg, device)
+    # every rank starts from rank 0's weights and buffers
+    group.broadcast_(list(model.state_dict().values()))
     step_fn = train_lib.make_train_step(model, optimizer, cfg, regime)
-    loader = _loader(cfg)
+    loader = _loader(cfg, world)
     profiler = ProfilerHook(cfg, device)
     try:
         steps_per_epoch = len(loader)
@@ -356,8 +393,11 @@ def _run_epochs(cfg, spec, model, optimizer, step_fn, loader, steps_per_epoch,
 
         if epoch in cfg.SAVE_CHECKPOINTS and (spec['ckpt_in_debug']
                                               or not cfg.DEBUG):
-            print('saving network', flush=True)
-            checkpoints.save_checkpoint(model, optimizer, epoch, global_step, cfg)
+            if group.rank() == 0:
+                print('saving network', flush=True)
+                checkpoints.save_checkpoint(model, optimizer, epoch,
+                                            global_step, cfg)
+            group.barrier()     # no rank reads the file before it is whole
 
 
 def seed_everything(seed: int) -> None:

@@ -36,6 +36,8 @@ PORT_MODULES = [
     "sanity_check", "preprocessing", "upload_study_area",
     # slice 7: serving
     "serving", "export_serving",
+    # slice 8: data parallelism over processes
+    "parallel.distributed", "parallel.group", "parallel.cluster_check",
 ]
 
 

@@ -431,3 +431,44 @@ def test_cuda_conv3x3_rejects_channels_the_kernel_cannot_load():
     x, w = (t.cuda() for t in _conv_inputs(1, 8, 8, 6, 16, torch.float32))
     with pytest.raises(ValueError, match="multiples of 8"):
         conv3x3.conv3x3(x, w)
+
+
+# --- two ranks on the card ------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_share_the_card_over_gloo(tmp_path):
+    """Needs the card: a world of two processes over gloo on CUDA tensors,
+    both on the one card, takes one bf16 sync-BN step of a small
+    siameseunet at global batch 4: each rank launches bn_stats 32 times
+    (16 BatchNorm calls, forward and backward), the ranks' gradients and
+    parameters are bit-equal, and the step agrees with the one-process
+    step on the same global batch: loss rel 1e-2, gradient rel 5e-2 in L2
+    over all parameters (bf16 convolutions at batch 2 and 4 may round
+    differently)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the world's kernels run only there")
+    from multimodal_siamese_cd_tpu_torch.parallel import cluster_check
+
+    rng = np.random.default_rng(0)
+    stack = rng.uniform(0, 1, (4, 15, 32, 32)).astype(np.float32)
+    stack[:, 12:] = stack[:, 12:] > 0.8
+    case = dict(name="step", kind="step", config="siamese", regime="supervised",
+                overrides=["MODEL.TOPOLOGY", "[8, 16]", "TRAINER.BATCH_SIZE", "4"],
+                stack=torch.from_numpy(stack), is_labeled=torch.ones(4))
+    rcs, outs = cluster_check.launch_cluster(
+        {"device": "cuda", "backend": "gloo", "cases": [case]}, tmp_path,
+        timeout=300)
+    assert rcs == [0, 0], "\n".join(o + e[-4000:] for o, e in outs)
+    ranks = [torch.load(tmp_path / f"step.rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    one = cluster_check.run_case(case, "cuda")
+    assert [r["launches"] for r in ranks] == [32, 32] and one["launches"] == 32
+    for name, g in ranks[0]["grads"].items():
+        assert torch.equal(g, ranks[1]["grads"][name]), name
+        assert torch.equal(ranks[0]["params"][name], ranks[1]["params"][name]), name
+    loss, want = ranks[0]["metrics"]["loss"], one["metrics"]["loss"]
+    assert abs(loss - want) <= 1e-2 * abs(want)
+    diff = sum(float((g.double() - one["grads"][k].double()).square().sum())
+               for k, g in ranks[0]["grads"].items())
+    norm = sum(float(g.double().square().sum()) for g in one["grads"].values())
+    assert diff <= (5e-2) ** 2 * norm

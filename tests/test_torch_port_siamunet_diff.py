@@ -152,7 +152,7 @@ def test_supervised_step_matches_jax(fixture_dataset, monkeypatch):
     near 0): the loss atol 1e-5; every parameter and every BN running
     statistic atol 1e-6; the encoder's BNs ran twice, the decoder's once."""
     monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
-    monkeypatch.setattr(networks, "spatial_dropout", lambda x, p, generator: x)
+    monkeypatch.setattr(networks, "spatial_dropout", lambda x, p, generator, rows=None: x)
     s = _both(fixture_dataset, _FLIPS_OFF)
     state, optimizer = _resumed_optimizers(s)
     batch = _batches(s.jcfg, ("labeled",))[0]
