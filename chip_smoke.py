@@ -122,7 +122,29 @@ script exits non-zero:
      initialisation, tried again on a new port if the store's was taken):
      finite windows, one checkpoint, 56 bn_stats launches a step and the
      evaluations' confusion launches, all held against the plain versions
-     as in phase 7.
+     as in phase 7;
+ 11. height sharding (``TRAINER.SPATIAL_SHARDS 2``, ``parallel.halo``) on a
+     world of two ranks over gloo on the one card (data 1 x space 2), one
+     launch of ``parallel.cluster_check`` for every case:
+     a. from phase 5's checkpoint, one full-width sync-BN step at global
+     batch 8 of 256^2 crops, each rank 128 of each crop's rows, held against
+     the one-process step (``PARALLEL_LIMITS``), the ranks' gradients,
+     parameters and buffers bit-equal, each rank's 56 bn_stats launches at
+     the half-height shapes, the first of each signature held against the
+     plain version as in phase 7; the step time, the share of it in
+     collectives with the halo exchanges apart (54 predicted: one forward
+     and one backward for each of the 28 3x3 convs, but none backward for
+     the stem's first conv on each date, whose input takes no gradient),
+     the peak memory per rank against the one-process step;
+     b. one staged step at 1024^2 crops, batch 8: time and peak memory per
+     rank against one process (the loss within ``PARALLEL_LIMITS``);
+     c. ``evaluation.sharded_scene_probabilities`` of the two validation
+     scenes against ``scene_probabilities`` at fp32 with TF32 off (limit
+     ``SPACE_FP32_LIMIT``) and at bf16 (printed), peak memory per rank;
+     ``run_measurer`` over the 20 scenes on the grid, every confusion launch
+     of each rank held against the plain version, the counts equal on both
+     ranks and their distance from the one-process counts; then bn_stats
+     timed (as in 3b) at the shapes a rank feeds it in 10a and in 11a.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports only the port,
@@ -229,6 +251,13 @@ PARALLEL_RANKS, PARALLEL_TIMED_STEPS = 2, 5
 PARALLEL_LIMITS = {"loss": 5e-3, "grads": 2e-2, "buffers": 1e-3}
 NCCL_MULTIPLIER, NCCL_LOG_FREQ = 4, 2
 NCCL_PORT_TRIES = 3
+# phase 11: the grid's space ranks on the one card, the side of 11b's staged
+# crops, the limit of the fp32 sharded scene probabilities (TF32 off)
+SPACE_RANKS, SPACE_BIG_SIDE, SPACE_FP32_LIMIT = 2, 1024, 1e-5
+# BatchNorm calls of a full-width siameseunet step at each of BN_SHAPES (the
+# stem on both dates and Up1, Down1-4 on both dates, Up4..Up2); each is one
+# forward and one backward bn_stats launch
+BN_STEP_COUNTS = (6, 4, 4, 4, 4, 2, 2, 2)
 
 
 def log(*args) -> None:
@@ -1391,8 +1420,18 @@ def _check_path_launches(rows: dict, dev: torch.device, bn_seen: dict,
                          conf_calls: list, path: str = "semi-supervised") -> None:
     """The path's own kernel outputs against the plain versions on the same
     inputs: bn_stats as :func:`_check_bn_launches` holds them, and every
-    rounding-rule confusion launch (exact)."""
+    rounding-rule confusion launch (:func:`_check_conf_launches`)."""
     worst, err = _check_bn_launches(rows, dev, bn_seen, path)
+    log(f"  the path's bn_stats launches at {len(bn_seen)} input signatures: "
+        f"within the limit (worst {worst:.4f} of it, max |kernel - ref| "
+        f"{err:.3e})")
+    _check_conf_launches(rows, dev, conf_calls, path)
+
+
+def _check_conf_launches(rows: dict, dev: torch.device, conf_calls: list,
+                         path: str) -> None:
+    """Every kept rounding-rule confusion launch ``(args, out)`` of a path
+    against the plain version on the same inputs, exactly."""
     conf_err = 0
     for args, got in conf_calls:
         args = tuple(t.to(dev) for t in args)
@@ -1400,9 +1439,7 @@ def _check_path_launches(rows: dict, dev: torch.device, bn_seen: dict,
             *args)).abs().max()))
     rows["confusion_counts"]["max_abs_err"] = max(
         rows["confusion_counts"]["max_abs_err"], conf_err)
-    log(f"  the path's bn_stats launches at {len(bn_seen)} input signatures: "
-        f"within the limit (worst {worst:.4f} of it, max |kernel - ref| "
-        f"{err:.3e}); its {len(conf_calls)} confusion launches: max |kernel - "
+    log(f"  the path's {len(conf_calls)} confusion launches: max |kernel - "
         f"plain| {conf_err} on {sum(int(a[0].numel()) for a, _ in conf_calls)} "
         f"probabilities")
     if not conf_calls or conf_err != 0:
@@ -2316,6 +2353,257 @@ def phase_nccl(card: dict, rows: dict, dev: torch.device, root: Path,
     return bn_launches, conf_launches
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+def bn_world_times(card: dict) -> None:
+    """``bn_stats`` per launch (:func:`bn_kernel_times`, CUDA graphs) at the
+    BatchNorm shapes one rank feeds it in phase 10a (batch 4, full height)
+    and in phase 11a (batch 8, half height), each beside its bound, and the
+    sums over a step's 56 launches (every shape at its count per step)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for label, to_rank in (("10a: a rank's batch 4 of 8, 256^2",
+                            lambda s: (4,) + s[1:]),
+                           ("11a: batch 8, a rank's 128 of 256 rows",
+                            lambda s: s[:2] + (s[2] // 2, s[3]))):
+        log(f"bn_stats per launch at the BatchNorm shapes of phase {label} "
+            f"(bf16; CUDA graphs of 20 launches, median of 5 rounds) on "
+            f"{card['smi']}:")
+        step_ms = step_bound = 0.0
+        for shape, count in zip(BN_SHAPES, BN_STEP_COUNTS):
+            shape = to_rank(shape)
+            dy, x = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                     for _ in range(2))
+            t = bn_kernel_times(card, dy, x)
+            step_ms += count * (t["back_ms"] + t["fwd_ms"])
+            step_bound += count * (t["back_bound"] + t["fwd_bound"])
+            log(f"  {shape} x{count}: backward {t['back_ms'] * 1e3:.2f} us (bound "
+                f"{t['back_bound'] * 1e3:.2f} us by {t['back_by']}, "
+                f"{t['back_bound'] / t['back_ms'] * 100:.1f}%), forward "
+                f"{t['fwd_ms'] * 1e3:.2f} us (bound {t['fwd_bound'] * 1e3:.2f} us, "
+                f"{t['fwd_bound'] / t['fwd_ms'] * 100:.1f}%)")
+        log(f"  a step's {2 * sum(BN_STEP_COUNTS)} launches on one rank: "
+            f"{step_ms * 1e3:.1f} us against a {step_bound * 1e3:.1f} us bound "
+            f"({step_bound / step_ms * 100:.1f}%)")
+    torch.cuda.empty_cache()
+
+
+def _timing_line(t: dict) -> str:
+    """A worker's timed step: the host-clock median, the collectives' share
+    of an instrumented step (halo exchanges apart) and the peak memory."""
+    coll = t["all_reduce_s"] + t["halo_s"]
+    return (f"step {t['step_s'] * 1e3:.1f} ms (host clock, median of "
+            f"{len(t['steps_s'])}: " + ", ".join(f"{x * 1e3:.1f}" for x in t["steps_s"])
+            + f"); an instrumented step {t['instrumented_s'] * 1e3:.1f} ms, of it "
+            f"{coll * 1e3:.1f} ms ({coll / t['instrumented_s'] * 100:.1f}%) in "
+            f"collectives: {t['halo_calls']} halo exchanges, "
+            f"{t['halo_s'] * 1e3:.1f} ms ({t['halo_s'] / t['instrumented_s'] * 100:.1f}"
+            f"%), {t['halo_bytes'] / 2**20:.1f} MiB; {t['all_reduce_calls']} other "
+            f"all-reduces, {t['all_reduce_s'] * 1e3:.1f} ms "
+            f"({t['all_reduce_s'] / t['instrumented_s'] * 100:.1f}%), "
+            f"{t['all_reduce_bytes'] / 2**20:.1f} MiB; peak "
+            f"{t['peak_bytes'] / 2**30:.2f} GiB")
+
+
+def phase_space(card: dict, rows: dict, dev: torch.device, root: Path,
+                aois: list) -> tuple:
+    """11: ``TRAINER.SPATIAL_SHARDS 2`` on a world of two ranks over gloo on
+    the one card (data 1 x space 2), from phase 5's checkpoint: a. one
+    full-width step at batch 8 on 256^2 crops, each rank 128 rows; b. one
+    staged step at 1024^2 crops; c. ``sharded_scene_probabilities`` and
+    ``run_measurer`` on the grid; then the bn_stats times at the world
+    paths' shapes. Returns the grid's bn_stats and rounding-rule confusion
+    launches."""
+    cfg = _train_cfg(root, root / "train_out", aois)
+    ckpt = str(checkpoints.checkpoint_file(cfg, 1))
+    loader = TrainLoader(MultimodalCDDataset(cfg, "training"), cfg.TRAINER.BATCH_SIZE,
+                         num_workers=0, seed=1)
+    batch = next(iter(loader))
+    opts = _split_opts(aois, aois) + [
+        "MODEL.TOPOLOGY", repr(list(cfg.MODEL.TOPOLOGY)),
+        "TRAINER.PRECISION", str(cfg.TRAINER.get("PRECISION", "bf16")),
+        "TRAINER.BATCH_SIZE", str(cfg.TRAINER.BATCH_SIZE)]
+    space_opts = opts + ["TRAINER.SPATIAL_SHARDS", str(SPACE_RANKS)]
+    common = dict(config="siamese", paths={"DATASET": str(root)}, checkpoint=ckpt)
+    step = dict(common, name="step", kind="step", regime="supervised",
+                overrides=space_opts,
+                stack=torch.from_numpy(batch["stack"]),
+                is_labeled=torch.from_numpy(batch["is_labeled"]))
+    big = dict(common, name="big", kind="step", regime="supervised",
+               overrides=space_opts + ["AUGMENTATION.CROP_SIZE", str(SPACE_BIG_SIDE)],
+               synthetic=(cfg.TRAINER.BATCH_SIZE, SPACE_BIG_SIDE, 0))
+    fp32 = opts + ["TRAINER.PRECISION", "fp32"]
+    probs = [dict(common, name="probs_fp32", kind="scene_probs", overrides=fp32,
+                  items=[0, 1], tf32=False),
+             dict(common, name="probs_bf16", kind="scene_probs", overrides=opts,
+                  items=[0, 1])]
+    scenes = dict(common, name="eval", kind="measurer", split="test",
+                  overrides=space_opts)
+    out_dir = root / "space_out"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()    # the two ranks share the card with this process
+    t0 = time.perf_counter()
+    rcs, outs = cluster_check.launch_cluster(
+        {"device": dev.type, "backend": "gloo",
+         "cases": [dict(step, keep_bn=True, timed_steps=PARALLEL_TIMED_STEPS),
+                   dict(big, timed_steps=1), *probs,
+                   dict(scenes, keep_conf=True)]},
+        out_dir, world=SPACE_RANKS, timeout=300)
+    world_s = time.perf_counter() - t0
+    for rank, (out, err) in enumerate(outs):
+        for line in out.splitlines():
+            log(f"  [rank {rank}] {line}")
+        if rcs[rank] != 0:
+            log(err[-6000:])
+    if rcs != [0] * SPACE_RANKS:
+        raise AssertionError(f"the grid of {SPACE_RANKS} ranks exited {rcs}")
+    got = {name: [torch.load(out_dir / f"{name}.rank{r}.pt", weights_only=False)
+                  for r in range(SPACE_RANKS)]
+           for name in ("step", "big", "probs_fp32", "probs_bf16", "eval")}
+
+    # ---- 11a: the 256^2 step against one process on the same weights ----
+    ranks = got["step"]
+    per_step = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)
+    # a 3x3 conv before each BatchNorm, each one exchange forward and one
+    # back, but the stem's first on each date, whose input (the data) takes
+    # no gradient: its backward exchanges nothing
+    halos = per_step - 2
+    side = cfg.AUGMENTATION.CROP_SIZE
+    rank_shapes = {(b, c, h // SPACE_RANKS, w) for b, c, h, w in BN_SHAPES}
+    for rank, res in enumerate(ranks):
+        shapes = sorted({tuple(k["shape"]) for k in res["bn_kept"]})
+        worst, err = _check_bn_launches(rows, dev, _bn_seen(res["bn_kept"]),
+                                        f"height-sharded (rank {rank})")
+        log(f"  rank {rank}: bn_stats launches {res['launches']} (expected "
+            f"{per_step}) at {shapes}, the first of each signature within the "
+            f"limit (worst {worst:.4f}, max |kernel - ref| {err:.3e})")
+        if res["launches"] != per_step:
+            raise AssertionError(f"rank {rank} launched bn_stats {res['launches']} "
+                                 f"times in one step, expected {per_step}")
+        if set(shapes) != rank_shapes:
+            raise AssertionError(f"rank {rank}'s BatchNorm inputs {shapes} are not "
+                                 f"the step's at 1/{SPACE_RANKS} of the height")
+    torch.cuda.synchronize()
+    bn_seen, _, keep_bn, _ = _keepers()
+    with _watch(batchnorm, "bn_stats", keep_bn):
+        one = cluster_check.run_case(dict(step, timed_steps=PARALLEL_TIMED_STEPS),
+                                     dev)
+    _check_bn_launches(rows, dev, bn_seen, "one-process batch-8 step")
+    same = all(torch.equal(t, ranks[1][part][name]) for part in ("grads", "params",
+                                                                 "buffers")
+               for name, t in ranks[0][part].items())
+    stats = [k for k in one["buffers"] if "running" in k]
+    errors = {
+        "loss": abs(ranks[0]["metrics"]["loss"] - one["metrics"]["loss"])
+        / abs(one["metrics"]["loss"]),
+        "grads": _rel(ranks[0]["grads"], one["grads"], one["grads"]),
+        "buffers": _rel(ranks[0]["buffers"], one["buffers"], stats),
+    }
+    log(f"SPATIAL_SHARDS {SPACE_RANKS}: two ranks over gloo on one card (data 1 x "
+        f"space {SPACE_RANKS}), global batch {cfg.TRAINER.BATCH_SIZE} of "
+        f"{side}^2 crops ({side // SPACE_RANKS} rows per rank), "
+        f"{cfg.TRAINER.get('PRECISION', 'bf16')}, sync-BN, from {Path(ckpt).name}: "
+        f"loss {ranks[0]['metrics']['loss']:.6f} (one process "
+        f"{one['metrics']['loss']:.6f}); against the one-process step "
+        + ", ".join(f"{k} {v:.3e} (limit {PARALLEL_LIMITS[k]:g})"
+                    for k, v in errors.items())
+        + f"; ranks' gradients, parameters and buffers bit-equal: {same}")
+    if not same or any(errors[k] > PARALLEL_LIMITS[k] for k in errors):
+        raise AssertionError(f"the height-sharded step: {errors}, ranks equal {same}")
+    for rank, res in enumerate(ranks):
+        t = res["timing"]
+        log(f"  rank {rank}: {_timing_line(t)} ({card['smi']}); halo exchanges "
+            f"predicted {halos} (2 per 3x3 conv, forward and backward, but for "
+            f"the backward of the stem's first conv on each date)")
+        if t["halo_calls"] != halos:
+            raise AssertionError(f"rank {rank} made {t['halo_calls']} halo exchanges "
+                                 f"in a step, predicted {halos}")
+    t = one["timing"]
+    log(f"  one process, batch {cfg.TRAINER.BATCH_SIZE} at {side}^2: step "
+        f"{t['step_s'] * 1e3:.1f} ms (host clock, median of "
+        f"{PARALLEL_TIMED_STEPS}); peak {t['peak_bytes'] / 2**30:.2f} GiB")
+    del one, bn_seen
+
+    # ---- 11b: the staged 1024^2 step, peak memory per rank ----
+    torch.cuda.empty_cache()
+    one = cluster_check.run_case(dict(big, timed_steps=1), dev)
+    torch.cuda.empty_cache()
+    for rank, res in enumerate(got["big"]):
+        log(f"  rank {rank}, staged batch {cfg.TRAINER.BATCH_SIZE} of "
+            f"{SPACE_BIG_SIDE}^2 ({SPACE_BIG_SIDE // SPACE_RANKS} rows): "
+            f"{_timing_line(res['timing'])}")
+    t = one["timing"]
+    big_loss = abs(got["big"][0]["metrics"]["loss"] - one["metrics"]["loss"]) \
+        / abs(one["metrics"]["loss"])
+    log(f"  one process, staged batch {cfg.TRAINER.BATCH_SIZE} of {SPACE_BIG_SIDE}^2:"
+        f" step {t['step_s'] * 1e3:.1f} ms (host clock); peak "
+        f"{t['peak_bytes'] / 2**30:.2f} GiB; the grid's peak per rank "
+        + ", ".join(f"{r['timing']['peak_bytes'] / 2**30:.2f}" for r in got["big"])
+        + f" GiB; loss {got['big'][0]['metrics']['loss']:.6f} against "
+        f"{one['metrics']['loss']:.6f} (relative {big_loss:.3e}, limit "
+        f"{PARALLEL_LIMITS['loss']:g})")
+    if big_loss > PARALLEL_LIMITS["loss"] or got["big"][0]["metrics"] != \
+            got["big"][1]["metrics"]:
+        raise AssertionError(f"the 1024^2 grid step's loss: {big_loss}, or the "
+                             f"ranks' metrics differ")
+    del one
+
+    # ---- 11c: sharded scene probabilities and the grid's counts ----
+    for name in ("probs_fp32", "probs_bf16"):
+        case = next(c for c in probs if c["name"] == name)
+        ccfg = cluster_check.case_cfg(case)
+        model, _ = cluster_check._model(case, ccfg, dev)
+        ds = cluster_check._eval_dataset(case, ccfg)
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        if not case.get("tf32", True):
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            single = [evaluation.scene_probabilities(model, ds[i], device=dev)
+                      for i in case["items"]]
+            one_peak = torch.cuda.max_memory_allocated()
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+        diff = max(float(np.abs(r["probs"][k].numpy() - s).max())
+                   for r in got[name] for k, s in enumerate(single))
+        equal = all(torch.equal(a, b) for a, b in zip(got[name][0]["probs"],
+                                                      got[name][1]["probs"]))
+        log(f"sharded_scene_probabilities, {name[6:]}"
+            f"{' (TF32 off)' if not case.get('tf32', True) else ''}, scenes "
+            f"{[tuple(p.shape) for p in got[name][0]['probs']]} over {SPACE_RANKS} "
+            f"ranks: max |sharded - scene_probabilities| {diff:.3e}; equal on the "
+            f"ranks {equal}; peak per rank "
+            + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in got[name])
+            + f" GiB, one process {one_peak / 2**30:.2f} GiB")
+        if not equal or (name == "probs_fp32" and diff >= SPACE_FP32_LIMIT):
+            raise AssertionError(f"{name}: max diff {diff} (fp32 limit "
+                                 f"{SPACE_FP32_LIMIT}), ranks equal {equal}")
+        del model
+    torch.cuda.empty_cache()
+    evals = got["eval"]
+    _check_conf_launches(rows, dev, [(tuple(k["args"]), k["out"]) for e in evals
+                                     for k in e["conf_kept"]], "grid run_measurer")
+    whole = cluster_check.run_case(scenes, dev)
+    keys = ("TP", "TN", "FP", "FN")
+    equal = all(torch.equal(evals[0][k], evals[1][k]) for k in keys)
+    dist = {k: float((evals[0][k] - whole[k]).abs().max()) for k in keys}
+    conf = sum(e["launches"] for e in evals)
+    log(f"run_measurer over {len(aois)} scenes on the grid (heights over "
+        f"{SPACE_RANKS} space ranks): " + ", ".join(f"{k} {int(evals[0][k][0])}"
+                                                    for k in keys)
+        + f", F1 {evals[0]['f1']:.6f}; equal on both ranks {equal}; |counts - "
+        f"one-process counts| " + ", ".join(f"{k} {v:g}" for k, v in dist.items())
+        + f" (F1 {whole['f1']:.6f}); confusion launches per rank "
+        f"{[e['launches'] for e in evals]}, every one held against plain")
+    if not equal or min(e["launches"] for e in evals) < 1:
+        raise AssertionError("the grid's counts differ between the ranks, or a "
+                             "rank launched no confusion kernel")
+    bn_world_times(card)
+    log(f"phase 11: the world's launch {world_s:.1f} s wall")
+    return sum(r["launches"] for r in ranks), conf
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2350,6 +2638,10 @@ def main() -> None:
             rows["confusion_counts"]["launches"] += conf_launches
         t10 = time.perf_counter()
         log(f"phase 10: {t10 - t9:.1f} s wall, checks included")
+        bn_launches, conf_launches = phase_space(card, rows, dev, root, aois)
+        rows["bn_stats"]["launches"] += bn_launches
+        rows["confusion_counts"]["launches"] += conf_launches
+        log(f"phase 11: {time.perf_counter() - t10:.1f} s wall, checks included")
     finally:
         tmp.cleanup()
     log(f"kernels: {json.dumps(list(rows))}; chip_smoke wall "

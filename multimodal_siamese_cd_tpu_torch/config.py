@@ -40,7 +40,7 @@ EXTENSION_KEYS = frozenset({
     "MODEL.SYNC_BN",               # batchnorm.py: sync-BN over the ranks
     "TRAINER.PRECISION",           # factory.py: bf16/fp32 compute dtype
     "TRAINER.GRAD_ACCUM",          # train_lib.py: micro-batches
-    "TRAINER.SPATIAL_SHARDS",      # > 1: the data-parallel fall-back warning
+    "TRAINER.SPATIAL_SHARDS",      # parallel/group.py: the (data, space) grid
     "TRAINER.STEPS_PER_EXECUTION", # declared no-op: runs as 1
     "TRAINER.EVAL_PAD_MULTIPLE",   # evaluation.py: eval bucket granularity
     "TRAINER.PROFILE_DIR",         # trainers.py: torch.profiler trace

@@ -12,10 +12,11 @@ package's ``data/loader.py``).
   package's schedule, so one seed gives both packages, and both worker
   types, the same batches.
 * In a world of several ranks each rank assembles only its rows of every
-  global batch (``rows``, :func:`..parallel.batch_rows`): the batch's
-  ``SeedSequence`` spawns one child per row of the global batch and the
-  rank keeps its rows' children, so its rows are exactly the global
-  batch's.
+  global batch (``rows``, :func:`..parallel.batch_rows`; on a
+  ``TRAINER.SPATIAL_SHARDS`` grid its data column's rows, the same on
+  every space rank of the column): the batch's ``SeedSequence`` spawns one
+  child per row of the global batch and the rank keeps its rows'
+  children, so its rows are exactly the global batch's.
 * :func:`prefetch_to_device` copies each batch through pinned host memory
   with ``non_blocking=True`` on a side stream, and the consumer's stream
   waits on an event recorded after the copy.

@@ -25,9 +25,21 @@ over the ranks (exact integers), so every rank ends with the same
 measurer, as the JAX package's replicated counts give every process. Every
 rank builds the same groups from every wire and makes the same number of
 forwards and collectives.
+
+On a ``TRAINER.SPATIAL_SHARDS`` grid (``space > 1``, :class:`.parallel.
+Grid`) the groups are sharded over the data columns as above, and each
+scene's padded height over the column's space ranks whenever it divides
+(the JAX package's ``_shard_group`` rule, evaluation.py:155-178): each rank
+runs the height-sharded forward (:mod:`.parallel.halo`) on its block and
+counts it with the confusion kernel, and the counts are summed over the
+world, exactly. A height that does not divide runs whole on every space
+rank and is counted by space index 0. :func:`sharded_scene_probabilities`
+splits one scene's height over every rank of the world.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -38,6 +50,7 @@ from .device import resolve_device
 from .metrics import MultiThresholdMetric
 from .ops.confusion import confusion_counts, strict_confusion_counts
 from .parallel import group as _group
+from .parallel import halo
 from .train_lib import autocast, eval_forward
 
 EVAL_BUCKET = 64
@@ -107,6 +120,40 @@ def scene_probabilities(model, item: dict, bucket: int = EVAL_BUCKET,
     return probs[0, 0, :h, :w].cpu().numpy()
 
 
+def sharded_scene_probabilities(model, item: dict, bucket: int = EVAL_BUCKET,
+                                device=None, process_group=None) -> np.ndarray:
+    """:func:`scene_probabilities` with the scene's height split over every
+    rank of ``process_group`` (default: the world; the JAX package's
+    ``sharded_scene_probabilities``, evaluation.py:355-398): each rank runs
+    the height-sharded forward (:mod:`.parallel.halo`) on its block of the
+    padded scene, and the blocks are made whole on every rank. When the
+    ranks do not divide the padded height, the height (alone) is padded
+    further, to a multiple of ``lcm(bucket, ranks)``, as the JAX package
+    does. Every rank of the group must call it; each returns the whole
+    ``(h, w)`` map."""
+    device = resolve_device(device)
+    _check_model_device(model, device)
+    grid = _group.scene_grid(process_group)
+    x1, _ = pad_to_bucket(item["x_t1"], bucket)
+    x2, _ = pad_to_bucket(item["x_t2"], bucket)
+    n = grid.space_size
+    if x1.shape[0] % n:
+        step = math.lcm(bucket, n)
+        hp = -(-x1.shape[0] // step) * step
+        x1, x2 = (np.concatenate([a, np.zeros((hp - a.shape[0],) + a.shape[1:],
+                                              a.dtype)]) for a in (x1, x2))
+    rows = x1.shape[0] // n
+    block = slice(grid.space_index * rows, (grid.space_index + 1) * rows)
+    with halo.height_sharded(grid, rows):
+        probs = eval_forward(model, _nchw(x1[None, block], device),
+                             _nchw(x2[None, block], device))
+        if n > 1:
+            with torch.inference_mode():
+                probs = halo.whole(probs, grid)
+    h, w = item["x_t1"].shape[:2]
+    return probs[0, 0, :h, :w].cpu().numpy()
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> device tensor; on the card through a pinned host
     buffer and a non-blocking copy on the current stream."""
@@ -136,7 +183,7 @@ def _eval_wire_counts(model, x1p: np.ndarray, x2p: np.ndarray, y: np.ndarray,
 
 
 def _stream_wire_groups(wires, keys: tuple, run_group, accumulate,
-                        group_scale: int = 1, shard=None) -> None:
+                        group_scale: int = 1, shard=None, space: int = 1) -> None:
     """Group ``wires`` (an iterable of eval wires, as
     :meth:`.data.dataset.MultimodalCDDataset.eval_wire` or
     :func:`_dualtask_item_wire` give them) by padded shape and dispatch a
@@ -157,11 +204,15 @@ def _stream_wire_groups(wires, keys: tuple, run_group, accumulate,
     ``shard = (rank, world)``: every group takes up to ``world`` times the
     envelope, is padded to a multiple of ``world`` with zero-valid scenes,
     and rank ``rank`` dispatches its contiguous share (the module
-    docstring). Default: this process's rank in its world, with each
-    group's counts summed over the ranks; an explicit ``shard`` counts that
-    share alone (what one rank contributes, reproduced in one process)."""
+    docstring). Default: this process's data column in the grid of
+    ``space`` space shards (:func:`.parallel.grid`; 1: the data-parallel
+    world), each scene's padded height split over the column's space ranks
+    when it divides, and each group's counts summed over the world; an
+    explicit ``shard`` counts that share alone, whole (what one data rank
+    contributes, reproduced in one process)."""
+    grid = _group.grid(space) if shard is None else None
     if shard is None:
-        rank, world, reduce = _group.rank(), _group.world_size(), True
+        rank, world, reduce = grid.data_index, grid.data_size, True
     else:
         (rank, world), reduce = shard, False
     pending: dict = {}
@@ -176,12 +227,21 @@ def _stream_wire_groups(wires, keys: tuple, run_group, accumulate,
     def dispatch(group: list) -> None:
         share = -(-len(group) // world)
         mine = group[rank * share:(rank + 1) * share]
-        arrs = tuple(np.stack([g[k] for g in mine]
-                              + [np.zeros_like(group[0][k])] * (share - len(mine)))
+        mine += [{k: np.zeros_like(group[0][k]) for k in keys}] * (share - len(mine))
+        hp = group[0][keys[0]].shape[-2]
+        n = 1 if grid is None else grid.space_size
+        rows = hp // n if hp % n == 0 else hp
+        # the height block of a (C, Hp, Wp) wire or an (Hp, Wp) plane
+        start = grid.space_index * rows if rows < hp else 0
+        arrs = tuple(np.stack([g[k][..., start:start + rows, :] for g in mine])
                      for k in keys)
         if inflight:  # bound device residency to one group + one staged
             consume()
-        inflight.append(run_group(arrs))
+        with halo.height_sharded(grid if rows < hp else None, rows):
+            counts = run_group(arrs)
+        if n > 1 and rows == hp and grid.space_index:
+            counts = torch.zeros_like(counts)    # space index 0 counts it
+        inflight.append(counts)
 
     for wire in wires:
         group = pending.setdefault(wire['x1'].shape, [])
@@ -202,7 +262,8 @@ def _stream_wire_groups(wires, keys: tuple, run_group, accumulate,
 
 
 def _measure_wired(model, ds, measurer: MultiThresholdMetric, bucket: int,
-                   device: torch.device, shard=None) -> MultiThresholdMetric:
+                   device: torch.device, shard=None,
+                   space: int = 1) -> MultiThresholdMetric:
     """Streaming group evaluation over ``ds.eval_wire`` wires with float64
     host accumulation of the kernel's counts."""
     thr = torch.as_tensor(measurer.thresholds, device=device)
@@ -212,18 +273,19 @@ def _measure_wired(model, ds, measurer: MultiThresholdMetric, bucket: int,
         run_group=lambda arrs: _eval_wire_counts(model, *arrs, thr, device),
         accumulate=lambda counts: measurer.add_counts(
             *counts.cpu().numpy().astype(np.float64)),
-        shard=shard)
+        shard=shard, space=space)
     return measurer
 
 
 def run_measurer(model, ds, thresholds, batch_scenes: bool = True,
                  bucket: int = EVAL_BUCKET, device=None,
-                 shard=None) -> MultiThresholdMetric:
+                 shard=None, space: int = 1) -> MultiThresholdMetric:
     """Full-scene confusion accumulation over a dataset.
 
     A cache-backed :class:`.data.dataset.MultimodalCDDataset` takes the wire
     path (:func:`_measure_wired`), sharded over the ranks of a
-    multi-process world (``shard``: :func:`_stream_wire_groups`). Item
+    multi-process world (``shard``, ``space``: the grid's space shards,
+    :func:`_stream_wire_groups`). Item
     lists and cache-disabled datasets take the item path, which every rank
     runs whole: padded float32 items, scenes of one padded shape stacked
     into one forward (``batch_scenes=False``: one scene per forward),
@@ -233,7 +295,7 @@ def run_measurer(model, ds, thresholds, batch_scenes: bool = True,
     measurer = MultiThresholdMetric(thresholds)
     if batch_scenes and getattr(ds, 'supports_eval_wire', None) is not None \
             and ds.supports_eval_wire():
-        return _measure_wired(model, ds, measurer, bucket, device, shard)
+        return _measure_wired(model, ds, measurer, bucket, device, shard, space)
 
     def flush(chunk: list) -> None:
         probs = eval_forward(model,
@@ -279,13 +341,14 @@ def model_evaluation(model, cfg, run_type: str, epoch: float, step: int,
     package's ``model_evaluation``): the ``run_type`` split's full scenes,
     first-last pairs, no augmentation, threshold 0.5. Logs
     ``{run_type} F1/precision/recall`` with the step and epoch and returns
-    the F1."""
+    the F1. On the training grid (``TRAINER.SPATIAL_SHARDS``) the scenes'
+    heights are split over its space ranks."""
     thresholds = np.linspace(0.5, 1, 1)
     ds = MultimodalCDDataset(cfg, run_type, no_augmentations=True,
                              dataset_mode='first_last', disable_multiplier=True,
                              disable_unlabeled=True)
     measurer = run_measurer(model, ds, thresholds, bucket=eval_bucket(cfg),
-                            device=device)
+                            device=device, space=_group.space_shards(cfg))
     f1, precision, recall = _summarize(measurer)
     wandb_compat.log({
         f'{run_type} F1': f1,
@@ -369,7 +432,7 @@ def _dualtask_wire_counts(model, x1p: np.ndarray, x2p: np.ndarray,
     return torch.stack(rows, dim=1)
 
 
-def _pooled_dualtask_counts(model, wires, device) -> dict:
+def _pooled_dualtask_counts(model, wires, device, space: int = 1) -> dict:
     """Stream dual-task ``wires`` through :func:`_dualtask_wire_counts` and
     pool the per-scene counts on the host in float64, the semantic ones
     over both dates."""
@@ -388,12 +451,12 @@ def _pooled_dualtask_counts(model, wires, device) -> dict:
     _stream_wire_groups(
         wires, ("x1", "x2", "y", "ysem1", "ysem2", "valid"),
         run_group=lambda arrs: _dualtask_wire_counts(model, *arrs, device),
-        accumulate=accumulate, group_scale=2)
+        accumulate=accumulate, group_scale=2, space=space)
     return {k: tuple(v) for k, v in totals.items()}
 
 
 def dualtask_quantitative_counts(model, ds, bucket: int = EVAL_BUCKET,
-                                 device=None) -> dict | None:
+                                 device=None, space: int = 1) -> dict | None:
     """Pooled strict-threshold confusion counts of the dual-task offline
     assessment (the JAX package's ``dualtask_quantitative_counts``, behind
     assessment_semantics.py): ``{'change'|'change_sem'|'sem': (tp, fp,
@@ -402,13 +465,14 @@ def dualtask_quantitative_counts(model, ds, bucket: int = EVAL_BUCKET,
     are grouped by padded shape with one group in flight, per-scene counts
     summed on the host in float64. None when the dataset has no wire path
     (cache disabled or training mode): the caller then takes the item
-    path, :func:`dualtask_item_counts`."""
+    path, :func:`dualtask_item_counts`. ``space``: the grid's space shards
+    (:func:`_stream_wire_groups`)."""
     if getattr(ds, "supports_eval_wire", None) is None \
             or not ds.supports_eval_wire():
         return None
     return _pooled_dualtask_counts(
         model, (ds.eval_wire(i, bucket, sem=True) for i in range(len(ds))),
-        device)
+        device, space)
 
 
 def _dualtask_item_wire(item: dict, bucket: int) -> dict:

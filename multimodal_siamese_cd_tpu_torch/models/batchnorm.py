@@ -38,6 +38,19 @@ and bias gradients stay the rank's own share, which the step's gradient
 all-reduce sums. Under ``MODEL.REMAT`` the recompute runs the forward's
 all-reduce again, in the same order on every rank. With ``sync`` off each
 rank normalises over its own rows and nothing is reduced.
+
+On a height-sharded level (``TRAINER.SPATIAL_SHARDS``,
+:mod:`..parallel.halo`) every rank holds an equal (rows × height) share:
+sync-BN reduces over the world as above, and with ``sync`` off the sums
+are reduced over the rank's data column (its space ranks share the
+statistics, as the JAX package's ``bn_group_count`` groups by the data
+axis), N the local count times the column's size. On a level the space
+ranks compute redundantly (whole on each) the forward's sums come from
+space index 0 alone (N counts the data columns, or the column alone
+without ``sync``), so nothing is counted ``n`` times; each space rank's
+backward holds its own part of the gradient, which the reduction sums,
+and the sums are divided by the ``n`` copies, so the parts of ``dx`` add
+up to the gradient of the whole.
 """
 
 from __future__ import annotations
@@ -47,7 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bn_stats import bn_stats
-from ..parallel import group
+from ..parallel import group, halo
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -61,15 +74,19 @@ class _TrainBatchNorm(torch.autograd.Function):
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps,
-                sync):
+                reduce):
         """``running_mean`` / ``running_var`` None: no running update;
-        ``sync``: sum the statistics over the ranks."""
+        ``reduce``: None, or how the statistics are summed over the ranks
+        (:func:`_reduction`)."""
         x = x.contiguous()
         n = x.numel() // x.shape[1]
         s1, s2 = bn_stats(x, x)
-        if sync:
-            s1, s2 = _summed_over_ranks(s1, s2)
-            n *= group.world_size()
+        if reduce is not None:
+            process_group, count, contributes, _ = reduce
+            if not contributes:
+                s1, s2 = torch.zeros_like(s1), torch.zeros_like(s2)
+            s1, s2 = _summed_over_ranks(s1, s2, process_group)
+            n *= count
         mean = s1 / n
         var = torch.clamp_min(s2 / n - mean * mean, 0.0)
         rstd = torch.rsqrt(var + eps)
@@ -82,7 +99,7 @@ class _TrainBatchNorm(torch.autograd.Function):
                 running_var.mul_(1.0 - momentum).add_(var, alpha=momentum)
         ctx.save_for_backward(x, weight, mean, rstd)
         ctx.n = n
-        ctx.sync = sync
+        ctx.reduce = reduce
         return y.to(x.dtype)
 
     @staticmethod
@@ -94,8 +111,11 @@ class _TrainBatchNorm(torch.autograd.Function):
         s1, s2 = bn_stats(dy, x)
         dbias = s1
         dweight = rstd * (s2 - mean * s1)
-        if ctx.sync:    # this rank's dweight, dbias; dx needs the global sums
-            s1, s2 = _summed_over_ranks(s1, s2)
+        if ctx.reduce is not None:  # this rank's dweight, dbias; dx needs the
+            process_group, _, _, copies = ctx.reduce    # global sums
+            s1, s2 = _summed_over_ranks(s1, s2, process_group)
+            if copies > 1:
+                s1, s2 = s1 / copies, s2 / copies
             dw_all = rstd * (s2 - mean * s1)
         else:
             dw_all = dweight
@@ -107,11 +127,26 @@ class _TrainBatchNorm(torch.autograd.Function):
         return dx.to(dy.dtype), dweight, dbias, None, None, None, None, None
 
 
-def _summed_over_ranks(s1: torch.Tensor, s2: torch.Tensor):
-    """``(s1, s2)`` summed over the ranks through one flat ``2C`` float32
-    all-reduce."""
-    flat = group.all_reduce_(torch.cat([s1, s2]))
+def _summed_over_ranks(s1: torch.Tensor, s2: torch.Tensor, process_group=None):
+    """``(s1, s2)`` summed over the ranks of ``process_group`` (default: the
+    world) through one flat ``2C`` float32 all-reduce."""
+    flat = group.all_reduce_(torch.cat([s1, s2]), process_group)
     return flat[:s1.numel()], flat[s1.numel():]
+
+
+def _reduction(sync: bool):
+    """How a train-mode BatchNorm sums its statistics over the ranks:
+    None (not at all), or ``(process group, N factor, this rank's forward
+    sums count, copies of the backward's)`` (module docstring)."""
+    world = group.world_size()
+    grid = halo.active()
+    if grid is None:
+        return (None, world, True, 1) if sync and world > 1 else None
+    process_group = None if sync else grid.column
+    if halo.sharded():
+        return process_group, world if sync else grid.space_size, True, 1
+    return (process_group, grid.data_size if sync else 1, grid.space_index == 0,
+            grid.space_size)
 
 
 class BatchNorm2d(nn.Module):
@@ -140,11 +175,11 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        sync = self.sync and group.world_size() > 1
+        reduce = _reduction(self.sync)
         if self.recomputing:
             return _TrainBatchNorm.apply(x, self.weight, self.bias, None, None,
-                                         self.momentum, self.eps, sync)
+                                         self.momentum, self.eps, reduce)
         self.num_batches_tracked.add_(1)
         return _TrainBatchNorm.apply(x, self.weight, self.bias,
                                      self.running_mean, self.running_var,
-                                     self.momentum, self.eps, sync)
+                                     self.momentum, self.eps, reduce)

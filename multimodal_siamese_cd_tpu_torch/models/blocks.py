@@ -21,6 +21,18 @@ training semantics, its statistics through the ``bn_stats`` kernel.
 ``MODEL.REMAT`` (:func:`set_remat`) checkpoints every stem, Down and Up
 stage, the stages the JAX package wraps in ``nn.remat`` (its blocks.py:197,
 :227, networks.py:55-59).
+
+Height sharding (``TRAINER.SPATIAL_SHARDS``, :mod:`..parallel.halo`): each
+stage declares the pyramid level it computes, and inside a
+``halo.height_sharded`` context the 3x3 convolutions (:class:`HaloConv2d`)
+attach one row of each neighbouring space rank and convolve with height
+padding 0. ``Down`` pools locally while the rank's rows are even; at the
+first level where they are not it makes its input whole on every space rank
+and the deeper levels run unsharded. ``Up``'s transposed conv (k2, s2) is
+local; where it meets a sharded skip from an unsharded level it pads the
+whole map to the skip's global height (the top rows on space rank 0, the
+odd one after on the last) and keeps this rank's rows. The unsharded graph
+and the parameter names are unchanged.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import halo
 from .batchnorm import BatchNorm2d
 
 
@@ -78,6 +91,41 @@ def set_remat(model: nn.Module) -> None:
             m.remat = True
 
 
+class HaloConv2d(nn.Conv2d):
+    """``nn.Conv2d`` (stride 1, height padding ``p``) that, on a sharded
+    level (:func:`..parallel.halo.sharded`), attaches ``p`` rows of each
+    neighbouring space rank and convolves with height padding 0."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.padding[0]
+        if not p or not halo.sharded():
+            return super().forward(x)
+        return F.conv2d(halo.halo(x, p, p), self.weight, self.bias, self.stride,
+                        (0, self.padding[1]), self.dilation, self.groups)
+
+
+class HaloConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose output height is ``stride`` times its
+    input's (``k + output_padding - 2p == stride``) that, on a sharded level,
+    computes this rank's ``stride · h`` output rows from its input rows and
+    the neighbours' rows they reach: output row ``o = stride·i - p + t``
+    needs input rows ``(k - 1 - p) // stride`` above the rank's and ``(p +
+    stride - 1) // stride`` below it (a stride-1 3x3 with padding 1: one
+    each side; stride 2, k3, p1: the next shard's first row; k2, s2, p0:
+    none)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not halo.sharded():
+            return super().forward(x)
+        (k, _), (s, _), (p, pw) = self.kernel_size, self.stride, self.padding
+        top, bottom = (k - 1 - p) // s, (p + s - 1) // s
+        out = F.conv_transpose2d(halo.halo(x, top, bottom), self.weight, self.bias,
+                                 self.stride, (0, pw), (0, self.output_padding[1]),
+                                 self.groups, self.dilation)
+        first = s * top + p
+        return out[:, :, first:first + s * x.shape[2]]
+
+
 class DoubleConv(nn.Module):
     """(3x3 conv -> BN -> ReLU) * 2 (reference networks.py:386-402);
     Sequential indices 0, 1, 3, 4 hold the conv/BN weights."""
@@ -85,10 +133,10 @@ class DoubleConv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = nn.Sequential(
-            nn.Conv2d(in_ch, out_ch, 3, padding=1),
+            HaloConv2d(in_ch, out_ch, 3, padding=1),
             BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=True),
-            nn.Conv2d(out_ch, out_ch, 3, padding=1),
+            HaloConv2d(out_ch, out_ch, 3, padding=1),
             BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=True),
         )
@@ -98,47 +146,79 @@ class DoubleConv(nn.Module):
 
 
 class InConv(_Stage):
-    """Stem block (reference networks.py:405-412)."""
+    """Stem block (reference networks.py:405-412), pyramid level 0."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = DoubleConv(in_ch, out_ch)
 
     def stage(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        with halo.level(0):
+            return self.conv(x)
+
+
+def whole_below(x: torch.Tensor, level: int) -> torch.Tensor:
+    """The input of the pooling into ``level``: made whole on every space
+    rank when its own level is sharded and ``level`` is not (its rows do
+    not pool evenly), else as it is."""
+    if halo.sharded(level - 1) and not halo.sharded(level):
+        return halo.whole(x)
+    return x
 
 
 class Down(_Stage):
-    """maxpool(2) + DoubleConv (reference networks.py:415-426). MaxPool2d(2)
-    floors odd sizes, like the JAX package's VALID pool."""
+    """maxpool(2) + DoubleConv (reference networks.py:415-426), computing
+    pyramid level ``level``. MaxPool2d(2) floors odd sizes, like the JAX
+    package's VALID pool."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, level: int = 1):
         super().__init__()
+        self.level = level
         self.mpconv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(in_ch, out_ch))
 
     def stage(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mpconv(x)
+        x = whole_below(x, self.level)
+        with halo.level(self.level):
+            return self.mpconv(x)
+
+
+def pad_to_skip(x: torch.Tensor, skip: torch.Tensor, level: int,
+                mode: str = "constant") -> torch.Tensor:
+    """Pad the upsampled map ``x`` to the size of ``skip`` at ``level``:
+    ``constant`` zeros split as the JAX package's jnp.pad splits them (the
+    odd pixel after, bottom/right), ``replicate`` all after. Where ``x``
+    comes from an unsharded level and ``skip`` is sharded, ``x`` is whole:
+    it is padded to the skip's global height and this rank keeps its
+    rows."""
+    h = skip.shape[2]
+    reshard = halo.sharded(level) and not halo.sharded(level + 1)
+    if reshard:
+        h *= halo.active().space_size
+    dh, dw = h - x.shape[2], skip.shape[3] - x.shape[3]
+    if dh or dw:
+        pads = ((dw // 2, dw - dw // 2, dh // 2, dh - dh // 2) if mode == "constant"
+                else (0, dw, 0, dh))
+        x = F.pad(x, pads, mode=mode)
+    return halo.own_rows(x) if reshard else x
 
 
 class Up(_Stage):
     """ConvTranspose(k=2, s=2) upsample + pad-to-skip + concat + DoubleConv
     (reference networks.py:429-451): ``Up(in_ch, out_ch)`` upsamples
-    ``in_ch // 2`` channels and convolves the ``in_ch``-wide concat."""
+    ``in_ch // 2`` channels and convolves the ``in_ch``-wide concat at the
+    skip's pyramid level ``level``."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, level: int = 0):
         super().__init__()
+        self.level = level
         self.up = nn.ConvTranspose2d(in_ch // 2, in_ch // 2, 2, stride=2)
         self.conv = DoubleConv(in_ch, out_ch)
 
     def stage(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        x1 = self.up(x1)
-        # pad the upsampled map to the skip's size; the odd pixel goes
-        # after (bottom/right), as in the JAX package's jnp.pad
-        dh = x2.shape[2] - x1.shape[2]
-        dw = x2.shape[3] - x1.shape[3]
-        if dh or dw:
-            x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-        return self.conv(torch.cat([x2, x1], dim=1))  # skip first
+        # the k2 s2 upsample is local: output rows 2i, 2i+1 read row i alone
+        x1 = pad_to_skip(self.up(x1), x2, self.level)
+        with halo.level(self.level):
+            return self.conv(torch.cat([x2, x1], dim=1))  # skip first
 
 
 class OutConv(nn.Module):
@@ -168,7 +248,7 @@ class Encoder(nn.Module):
         super().__init__()
         widths = encoder_widths(topology)
         self.down_seq = nn.ModuleDict({
-            f"down{idx + 1}": Down(topology[idx], out_ch)
+            f"down{idx + 1}": Down(topology[idx], out_ch, level=idx + 1)
             for idx, out_ch in enumerate(widths)})
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
@@ -195,7 +275,8 @@ class Decoder(nn.Module):
         stages = {}
         for idx in reversed(range(len(topology))):
             x2_idx = idx - 1 if idx != 0 else idx
-            stages[f"up{idx + 1}"] = Up(up_topo[idx] * 2, up_topo[x2_idx])
+            stages[f"up{idx + 1}"] = Up(up_topo[idx] * 2, up_topo[x2_idx],
+                                        level=idx)
         self.up_seq = nn.ModuleDict(stages)
 
     def forward(self, features: list[torch.Tensor]) -> torch.Tensor:

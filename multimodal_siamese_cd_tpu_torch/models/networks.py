@@ -50,8 +50,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import halo
 from .batchnorm import BatchNorm2d
-from .blocks import Decoder, Encoder, InConv, OutConv
+from .blocks import (Decoder, Encoder, HaloConv2d, HaloConvTranspose2d, InConv,
+                     OutConv, pad_to_skip, whole_below)
 
 # flax lecun_normal: truncated_normal over [-2, 2] rescaled to unit
 # variance, i.e. stddev / 0.87962566103423978 before truncation
@@ -308,8 +310,9 @@ def spatial_dropout(x: torch.Tensor, p: float, generator: torch.Generator,
     channel), ``uniform < 1 - p`` from ``generator`` (on ``x``'s device);
     kept channels divided by ``1 - p``, dropped ones zero. ``rows = (start,
     total)``: ``x`` holds rows ``[start, start + B)`` of a global batch of
-    ``total`` (one rank's share); the draw is the global batch's, and
-    ``x`` takes its rows of it."""
+    ``total`` (one data column's share); the draw is the global batch's,
+    and ``x`` takes its rows of it — every space rank of the column the
+    same mask, whatever height block it holds."""
     keep = 1.0 - p
     start, total = (0, x.shape[0]) if rows is None else rows
     mask = torch.rand((total, x.shape[1], 1, 1), generator=generator,
@@ -334,7 +337,15 @@ class SiamUnetDiff(nn.Module):
     In train mode ``forward`` needs ``generator``, the explicit generator of
     the dropout draws (the train step passes its per-step generator, see
     :func:`..train_lib.augment_generator`); torch's global generator is
-    never used."""
+    never used.
+
+    Height sharding (:mod:`..parallel.halo`): encoder stage ``s`` computes
+    pyramid level ``s - 1``, its 3x3 convs and the decoder's stride-1
+    transposed ones attach a row of each neighbour, ``upconv{s}`` the next
+    shard's first row (:class:`.blocks.HaloConvTranspose2d`); the pool into
+    the first level whose rows do not halve evenly makes its input whole,
+    and the decoder's replicate pad-to-skip takes the rank's rows back
+    (:func:`.blocks.pad_to_skip`)."""
 
     draws_dropout = True    # the train step passes its generator to forward
 
@@ -349,18 +360,18 @@ class SiamUnetDiff(nn.Module):
         ch = in_channels
         for s, (width, n) in enumerate(SIAMUNET_DIFF_ENCODER, start=1):
             for i in range(1, n + 1):
-                setattr(self, f"conv{s}{i}", nn.Conv2d(ch, width, 3, padding=1))
+                setattr(self, f"conv{s}{i}", HaloConv2d(ch, width, 3, padding=1))
                 setattr(self, f"bn{s}{i}", BatchNorm2d(width, eps=1e-5,
                                                       momentum=0.1))
                 ch = width
         for s, up_width, convs in SIAMUNET_DIFF_DECODER:
-            setattr(self, f"upconv{s}", nn.ConvTranspose2d(
+            setattr(self, f"upconv{s}", HaloConvTranspose2d(
                 ch, up_width, 3, stride=2, padding=1, output_padding=1))
             ch = up_width + SIAMUNET_DIFF_ENCODER[s - 1][0]     # + the skip
             for j, width in convs:
                 out = out_channels if width is None else width
                 setattr(self, f"conv{s}{j}d",
-                        nn.ConvTranspose2d(ch, out, 3, padding=1))
+                        HaloConvTranspose2d(ch, out, 3, padding=1))
                 if width is not None:
                     setattr(self, f"bn{s}{j}d", BatchNorm2d(width, eps=1e-5,
                                                            momentum=0.1))
@@ -377,10 +388,11 @@ class SiamUnetDiff(nn.Module):
     def _encode(self, x: torch.Tensor, generator, rows):
         skips = []
         for s, (_, n) in enumerate(SIAMUNET_DIFF_ENCODER, start=1):
-            for i in range(1, n + 1):
-                x = self._unit(x, f"{s}{i}", generator, rows)
+            with halo.level(s - 1):
+                for i in range(1, n + 1):
+                    x = self._unit(x, f"{s}{i}", generator, rows)
             skips.append(x)
-            x = F.max_pool2d(x, 2)
+            x = F.max_pool2d(whole_below(x, s), 2)
         return x, skips
 
     def forward(self, x_t1: torch.Tensor, x_t2: torch.Tensor,
@@ -394,15 +406,15 @@ class SiamUnetDiff(nn.Module):
         _, skips1 = self._encode(x_t1, generator, rows)
         x, skips2 = self._encode(x_t2, generator, rows)   # the t2 bottleneck
         for s, _, convs in SIAMUNET_DIFF_DECODER:
-            x = getattr(self, f"upconv{s}")(x)
+            with halo.level(s):
+                x = getattr(self, f"upconv{s}")(x)
             skip = (skips1[s - 1] - skips2[s - 1]).abs()
-            dh, dw = skip.shape[2] - x.shape[2], skip.shape[3] - x.shape[3]
-            if dh or dw:
-                x = F.pad(x, (0, dw, 0, dh), mode="replicate")
-            x = torch.cat([x, skip], dim=1)
-            for j, width in convs:
-                if width is None:
-                    x = getattr(self, f"conv{s}{j}d")(x)
-                else:
-                    x = self._unit(x, f"{s}{j}d", generator, rows)
+            x = torch.cat([pad_to_skip(x, skip, s - 1, mode="replicate"), skip],
+                          dim=1)
+            with halo.level(s - 1):
+                for j, width in convs:
+                    if width is None:
+                        x = getattr(self, f"conv{s}{j}d")(x)
+                    else:
+                        x = self._unit(x, f"{s}{j}d", generator, rows)
         return x.float()

@@ -11,13 +11,17 @@ through the shipped env-gated path (:func:`.distributed.
 maybe_initialize_distributed`, a ``file://`` rendezvous in a fresh temporary
 directory, so no port is picked and none can be taken) and runs the job's
 cases in order, each rank on its rows: ``step`` takes optimizer steps with
-the rank feeding its rows of the global batch, ``measurer`` and
-``dualtask_counts`` run the wire evaluations sharded over the ranks,
-``train`` runs :func:`..trainers.run_training`, ``errors`` records the
-messages of the errors a world raises. :func:`run_case` runs a case in the
-calling process, where, without a process group, it is the one-process
-reference of the same case. Each rank writes ``{name}.rank{rank}.pt`` into
-``out_dir`` and prints::
+the rank feeding its rows of the global batch (on a
+``TRAINER.SPATIAL_SHARDS`` grid, its data column's rows, of which the step
+keeps its height block), ``measurer`` and ``dualtask_counts`` run the wire
+evaluations sharded over the ranks (and the grid's space ranks),
+``scene_probs`` runs :func:`..evaluation.sharded_scene_probabilities`,
+``halo`` the halo exchange and :func:`.halo.whole` alone with their
+adjoints, ``train`` runs :func:`..trainers.run_training`, ``errors``
+records the messages of the errors a world raises. :func:`run_case` runs a
+case in the calling process, where, without a process group, it is the
+one-process reference of the same case. Each rank writes
+``{name}.rank{rank}.pt`` into ``out_dir`` and prints::
 
     RESULT <rank> <loss> <param_abs_sum>      (a step case)
     EVALF1 <rank> <f1>                        (a measurer case)
@@ -72,6 +76,9 @@ def main(argv=None) -> None:
                       f"{out['param_abs_sum']:.6f}", flush=True)
             if "f1" in out:
                 print(f"EVALF1 {rank} {out['f1']:.10f}", flush=True)
+            del out
+            if cuda:    # the ranks share the card: hand back the case's cache
+                torch.cuda.empty_cache()
         group.barrier()
     finally:
         shutdown()
@@ -136,32 +143,43 @@ def _sync(device) -> None:
 
 def _step_case(case: dict, device) -> dict:
     """``steps`` optimizer steps (default 1) of ``regime`` on the global
-    batch ``stack`` / ``is_labeled``, this rank feeding its rows; the
-    metrics of the last, the (summed) gradients, BatchNorm buffers and
-    parameters after it, the bn_stats launches. ``keep_bn``: also the
-    first launch of each signature (:func:`_keep_first_launches`);
-    ``timed_steps``: then the median host time of that many more steps
-    and, over one more, the host time inside all-reduces (each preceded by
-    a device synchronisation), and the peak device memory (on the card)."""
+    batch ``stack`` / ``is_labeled`` (or, without ``stack``, a batch drawn
+    from ``synthetic``: :func:`_synthetic_batch`), this rank feeding its
+    rows; the metrics of the last, the (summed) gradients, BatchNorm
+    buffers and parameters after it, the bn_stats launches.
+    ``keep_bn``: also the first launch of each signature
+    (:func:`_keep_first_launches`); ``timed_steps``: then the median host
+    time of that many more steps and, over one more, the host time inside
+    all-reduces (each preceded by a device synchronisation), the halo
+    exchanges' apart (:func:`.halo.exchange_`), and the peak device memory
+    (on the card); ``dropout: False`` makes siamunet_diff's
+    spatial dropout the identity (its draws are each package's own, so a
+    step held against the JAX package's runs without them)."""
     import torch.distributed as dist
 
     from .. import train_lib
-    from ..models import batchnorm
+    from ..models import batchnorm, networks
     from ..ops.bn_stats import bn_stats
-    from . import group
+    from . import group, halo
 
     cfg = case_cfg(case)
+    if "stack" not in case:
+        case = dict(case, **_synthetic_batch(*case["synthetic"]))
     model, optimizer = _model(case, cfg, device)
     step_fn = train_lib.make_train_step(model, optimizer, cfg, case["regime"])
+    grid = group.grid(group.space_shards(cfg))
     rows = group.batch_rows(case["stack"].shape[0],
-                            int(cfg.TRAINER.get("GRAD_ACCUM", 1)))
+                            int(cfg.TRAINER.get("GRAD_ACCUM", 1)),
+                            grid.data_index, grid.data_size)
     index = torch.as_tensor(rows)
     stack = case["stack"][index].to(device)
     is_labeled = case["is_labeled"][index].to(device)
     kept: list = []
-    wrapper = batchnorm.bn_stats
+    wrapper, dropout = batchnorm.bn_stats, networks.spatial_dropout
     if case.get("keep_bn"):
         batchnorm.bn_stats = _keep_first_launches(kept)
+    if not case.get("dropout", True):
+        networks.spatial_dropout = lambda x, p, generator, rows=None: x
     try:
         _sync(device)
         bn_stats.launches = 0
@@ -170,7 +188,7 @@ def _step_case(case: dict, device) -> dict:
         _sync(device)
         launches = bn_stats.launches
     finally:
-        batchnorm.bn_stats = wrapper
+        batchnorm.bn_stats, networks.spatial_dropout = wrapper, dropout
     out = {
         "metrics": {k: float(v) for k, v in metrics.items()},
         "grads": {n: p.grad.detach().float().cpu()
@@ -194,20 +212,27 @@ def _step_case(case: dict, device) -> dict:
             step_fn(stack, is_labeled, i)
             _sync(device)
             times.append(time.perf_counter() - t0)
-        spent, calls, nbytes = [0.0], [0], [0]
-        all_reduce = dist.all_reduce
+        # [seconds, calls, bytes] of the halo exchanges and of every other
+        # all-reduce
+        spent = {"halo": [0.0, 0, 0], "other": [0.0, 0, 0]}
+        all_reduce, exchange = dist.all_reduce, halo.exchange_
 
-        def timed(tensor, *args, **kwargs):
-            _sync(device)
-            t0 = time.perf_counter()
-            work = all_reduce(tensor, *args, **kwargs)
-            _sync(device)
-            spent[0] += time.perf_counter() - t0
-            calls[0] += 1
-            nbytes[0] += tensor.numel() * tensor.element_size()
-            return work
+        def timer(kind, fn):
+            def timed(tensor, *args, **kwargs):
+                _sync(device)
+                t0 = time.perf_counter()
+                work = fn(tensor, *args, **kwargs)
+                _sync(device)
+                acc = spent[kind]
+                acc[0] += time.perf_counter() - t0
+                acc[1] += 1
+                acc[2] += tensor.numel() * tensor.element_size()
+                return work
+            return timed
 
-        dist.all_reduce = timed
+        dist.all_reduce = timer("other", all_reduce)
+        # the exchange's own all-reduce, untimed by the other wrapper
+        halo.exchange_ = timer("halo", lambda buf, pg: all_reduce(buf, group=pg))
         try:
             _sync(device)
             t0 = time.perf_counter()
@@ -215,13 +240,27 @@ def _step_case(case: dict, device) -> dict:
             _sync(device)
             instrumented = time.perf_counter() - t0
         finally:
-            dist.all_reduce = all_reduce
+            dist.all_reduce, halo.exchange_ = all_reduce, exchange
         out["timing"] = {"step_s": float(np.median(times)), "steps_s": times,
                          "instrumented_s": instrumented,
-                         "all_reduce_s": spent[0], "all_reduce_calls": calls[0],
-                         "all_reduce_bytes": nbytes[0],
+                         "all_reduce_s": spent["other"][0],
+                         "all_reduce_calls": spent["other"][1],
+                         "all_reduce_bytes": spent["other"][2],
+                         "halo_s": spent["halo"][0], "halo_calls": spent["halo"][1],
+                         "halo_bytes": spent["halo"][2],
                          "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
     return out
+
+
+def _synthetic_batch(batch: int, side: int, seed: int) -> dict:
+    """A staged global batch of ``batch`` wire stacks of ``side``² pixels in
+    the siamese layout (12 image channels of standard normals, then three
+    {0, 1} label planes), all labeled, drawn from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randn((batch, 12, side, side), generator=gen)
+    labels = (torch.rand((batch, 3, side, side), generator=gen) < 0.2).float()
+    return {"stack": torch.cat([images, labels], dim=1),
+            "is_labeled": torch.ones(batch)}
 
 
 def _eval_dataset(case: dict, cfg):
@@ -234,35 +273,128 @@ def _eval_dataset(case: dict, cfg):
 
 def _measurer_case(case: dict, device) -> dict:
     """``evaluation.run_measurer`` over the case's split at threshold 0.5,
-    sharded over the ranks: the counts, F1 and confusion launches."""
+    sharded over the ranks (and over the space ranks of the config's
+    ``TRAINER.SPATIAL_SHARDS`` grid): the counts, F1 and confusion
+    launches; ``keep_conf``: also host copies of every launch's inputs and
+    output."""
     from .. import evaluation
     from ..ops.confusion import confusion_counts
+    from . import group
 
     cfg = case_cfg(case)
     model, _ = _model(case, cfg, device)
     ds = _eval_dataset(case, cfg)
-    _sync(device)
-    confusion_counts.launches = 0
-    m = evaluation.run_measurer(model, ds, np.asarray([0.5]),
-                                bucket=evaluation.eval_bucket(cfg),
-                                device=device, shard=case.get("shard"))
-    _sync(device)
+    kept: list = []
+    wrapper = evaluation.confusion_counts
+    if case.get("keep_conf"):
+        def watched(*args):
+            got = wrapper(*args)
+            kept.append({"args": [a.detach().to("cpu", copy=True) for a in args],
+                         "out": got.to("cpu", copy=True)})
+            return got
+        evaluation.confusion_counts = watched
+    try:
+        _sync(device)
+        confusion_counts.launches = 0
+        m = evaluation.run_measurer(model, ds, np.asarray([0.5]),
+                                    bucket=evaluation.eval_bucket(cfg),
+                                    device=device, shard=case.get("shard"),
+                                    space=group.space_shards(cfg))
+        _sync(device)
+    finally:
+        evaluation.confusion_counts = wrapper
     out = {k: torch.as_tensor(np.asarray(getattr(m, k), np.float64))
            for k in ("TP", "TN", "FP", "FN")}
     out["f1"] = float(np.asarray(m.compute_f1()).max())
     out["launches"] = confusion_counts.launches
+    out["conf_kept"] = kept
     return out
 
 
 def _dualtask_counts_case(case: dict, device) -> dict:
     from .. import evaluation
+    from . import group
 
     cfg = case_cfg(case)
     model, _ = _model(case, cfg, device)
     counts = evaluation.dualtask_quantitative_counts(
         model, _eval_dataset(case, cfg), bucket=evaluation.eval_bucket(cfg),
-        device=device)
+        device=device, space=group.space_shards(cfg))
     return {k: torch.tensor(v, dtype=torch.float64) for k, v in counts.items()}
+
+
+def _scene_probs_case(case: dict, device) -> dict:
+    """``evaluation.sharded_scene_probabilities`` of the split's scenes
+    ``items`` (default: the first), the height over every rank of the world
+    or, with ``ranks``, of the process group of those ranks (every rank
+    creates it; the others return nothing); ``tf32: False`` turns TF32 off
+    on the card. The maps and, on the card, the peak device memory."""
+    import torch.distributed as dist
+
+    from .. import evaluation
+    from . import group
+
+    cfg = case_cfg(case)
+    model, _ = _model(case, cfg, device)
+    ds = _eval_dataset(case, cfg)
+    ranks = case.get("ranks")
+    process_group = None
+    if ranks is not None and group.initialized():
+        process_group = dist.new_group(ranks)
+        if group.rank() not in ranks:
+            return {}
+    cuda = torch.device(device).type == "cuda"
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if not case.get("tf32", True):
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        probs = [torch.from_numpy(evaluation.sharded_scene_probabilities(
+            model, ds[i], bucket=evaluation.eval_bucket(cfg), device=device,
+            process_group=process_group)) for i in case.get("items", [0])]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return {"probs": probs,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+
+
+def _halo_case(case: dict, device) -> dict:
+    """The halo exchange (:func:`.halo.halo`) and :func:`.halo.whole` alone
+    on the grid of ``space`` space shards, in float64: this rank's block of
+    its data column's map ``x[data index]`` (``(D, B, C, H, W)``), each
+    ``(top, bottom)`` of ``halos`` applied, and the inner products with
+    this rank's ``y`` of the output's shape before and after the adjoint:
+    ``<halo(x), y>`` and ``<x, halo*(y)>`` (the backward of the first)."""
+    from . import group, halo
+
+    grid = group.grid(case["space"])
+    x_all = case["x"][grid.data_index].to(device)
+    rows = x_all.shape[2] // grid.space_size
+    block = x_all[:, :, grid.space_index * rows:][:, :, :rows]
+    out = {"rows": rows}
+    gen = torch.Generator().manual_seed(1000 + group.rank())
+    with halo.height_sharded(grid, rows):
+        for top, bottom in case["halos"]:
+            x = block.clone().requires_grad_(True)
+            y_out = halo.halo(x, top, bottom)
+            y = torch.randn(y_out.shape, generator=gen, dtype=x.dtype).to(device)
+            inner = (y_out * y).sum()
+            inner.backward()
+            out[(top, bottom)] = {"out": y_out.detach().cpu(), "y": y.cpu(),
+                                  "grad": x.grad.cpu(), "inner": float(inner.detach()),
+                                  "adjoint": float((x * x.grad).sum())}
+        x = block.clone().requires_grad_(True)
+        y_out = halo.whole(x)
+        y = torch.randn(y_out.shape, generator=gen, dtype=x.dtype).to(device)
+        inner = (y_out * y).sum()
+        inner.backward()
+        out["whole"] = {"out": y_out.detach().cpu(), "y": y.cpu(),
+                        "grad": x.grad.cpu(), "inner": float(inner.detach()),
+                        "adjoint": float((x * x.grad).sum())}
+    return out
 
 
 def _train_case(case: dict, device) -> dict:
@@ -312,13 +444,14 @@ def _errors_case(case: dict, device) -> dict:
         "accum": message(lambda: step_fn(stack, None, 0)),
         "sync_bn": message(lambda: train_lib.make_train_step(
             nosync_model, nosync_optimizer, nosync, "supervised")),
-        "batch": message(lambda: trainers.training_world(odd)),
+        "batch": message(lambda: trainers.training_grid(odd)),
     }
 
 
 _CASES = {"step": _step_case, "measurer": _measurer_case,
           "dualtask_counts": _dualtask_counts_case, "train": _train_case,
-          "errors": _errors_case}
+          "errors": _errors_case, "scene_probs": _scene_probs_case,
+          "halo": _halo_case}
 
 
 def run_case(case: dict, device="cpu") -> dict:

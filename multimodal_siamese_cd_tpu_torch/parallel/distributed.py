@@ -86,6 +86,7 @@ def shutdown() -> None:
     global _local_device
     if group.initialized():
         dist.destroy_process_group()
+    group._columns.clear()
     _local_device = None
 
 

@@ -17,7 +17,7 @@ from . import losses
 from .data.augmentations import apply_augmentation, draw_augmentation
 from .models.batchnorm import BatchNorm2d
 from .models.factory import compute_dtype
-from .parallel import group
+from .parallel import group, halo
 
 
 def make_optimizer(model, cfg) -> torch.optim.AdamW:
@@ -92,17 +92,17 @@ def augment_generator(seed: int, step: int, device: torch.device) -> torch.Gener
 
 
 def augment(stack: torch.Tensor, cfg, layout: dict, dtype: torch.dtype,
-            generator: torch.Generator,
-            rows: np.ndarray | None = None) -> torch.Tensor:
+            generator: torch.Generator, rows: np.ndarray | None = None,
+            total: int | None = None) -> torch.Tensor:
     """Cast the wire to ``dtype`` and apply the config's per-sample device
     augmentation (flips and rotations exact in any dtype; labels {0, 1}
     exact in bf16). ``rows``: ``stack`` holds these rows of a global batch
-    of ``rows.size · world`` (one rank's share, :func:`..parallel.
-    batch_rows`); the decisions are drawn for the global batch and each
-    row takes its own."""
+    of ``total`` (one data column's share, :func:`..parallel.batch_rows`);
+    the decisions are drawn for the global batch and each row takes its
+    own."""
     a = cfg.AUGMENTATION
     stack = stack.to(dtype)
-    n = stack.shape[0] if rows is None else stack.shape[0] * group.world_size()
+    n = stack.shape[0] if rows is None else total
     decisions = draw_augmentation(
         n, layout["n_img"], flip=bool(a.RANDOM_FLIP),
         rotate=bool(a.RANDOM_ROTATE), color_shift=bool(a.COLOR_SHIFT),
@@ -166,19 +166,34 @@ def _make_step(model, optimizer, cfg, losses_of):
     AdamW. BatchNorm is synchronised over the ranks (``MODEL.SYNC_BN``,
     default True); with ``SYNC_BN: False`` each rank normalises over its
     own rows and every rank then takes rank 0's running statistics, as the
-    JAX package keeps group 0's (train_lib.py:151-181)."""
+    JAX package keeps group 0's (train_lib.py:151-181).
+
+    ``TRAINER.SPATIAL_SHARDS n`` on a world the grid accepts
+    (:func:`.parallel.space_shards`; the JAX package's 2-D mesh,
+    train_lib.py:206-225) makes the world a ``(W / n, n)`` grid
+    (:class:`.parallel.Grid`): ``stack`` holds the data column's rows at
+    full crop height, the augmentation (whose rot90 mixes height and width)
+    runs on the full crops, and then each space rank keeps its ``1/n`` of
+    the height; the model runs height-sharded (:mod:`.parallel.halo`, in
+    the forward and the backward), the global batch is made of (rows,
+    height) blocks, the micro-batches split over the data axis alone, and
+    the gradient all-reduce sums over the whole world. BatchNorm groups
+    follow the data axis (the JAX package's ``bn_group_count``): without
+    sync-BN a column's space ranks share its statistics."""
     accum = int(cfg.TRAINER.get("GRAD_ACCUM", 1))
     layout = stack_layout(cfg)
     device = next(model.parameters()).device
     dtype = compute_dtype(cfg) if device.type == "cuda" else torch.float32
-    world, rank = group.world_size(), group.rank()
+    world = group.world_size()
+    grid = group.grid(group.space_shards(cfg))
+    data, column, n_space = grid.data_size, grid.data_index, grid.space_size
     bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     # the model's BatchNorms (the factory set them from MODEL.SYNC_BN) decide
     sync_bn = all(m.sync for m in bns)
-    if world > 1 and not sync_bn and cfg.TRAINER.BATCH_SIZE % world:
+    if data > 1 and not sync_bn and cfg.TRAINER.BATCH_SIZE % data:
         raise ValueError(
             f"MODEL.SYNC_BN: False needs TRAINER.BATCH_SIZE "
-            f"({cfg.TRAINER.BATCH_SIZE}) divisible by the {world}-device mesh")
+            f"({cfg.TRAINER.BATCH_SIZE}) divisible by the {data}-device mesh")
     bn_buffers = [b for m in bns for b in (m.running_mean, m.running_var)]
 
     # a model with dropout (siamunet_diff) draws its masks from the step's
@@ -186,13 +201,15 @@ def _make_step(model, optimizer, cfg, losses_of):
     draws_dropout = getattr(model, "draws_dropout", False)
 
     def step(stack: torch.Tensor, is_labeled, global_step: int) -> dict:
-        batch = stack.shape[0] * world
-        rows = group.batch_rows(batch, accum, rank, world)
-        share = stack.shape[0] // accum        # this rank's rows per micro-batch
+        batch = stack.shape[0] * data
+        rows = group.batch_rows(batch, accum, column, data)
+        share = stack.shape[0] // accum        # the column's rows per micro-batch
         model.train()
         generator = augment_generator(cfg.SEED, global_step, device)
         stack_aug = augment(stack, cfg, layout, dtype, generator,
-                            rows if world > 1 else None)
+                            rows if data > 1 else None, batch)
+        height = stack_aug.shape[2] // n_space   # this space rank's crop rows
+        stack_aug = stack_aug.narrow(2, grid.space_index * height, height)
         labs = [None] * accum if is_labeled is None else is_labeled.chunk(accum)
         optimizer.zero_grad(set_to_none=True)
         micro = []
@@ -201,16 +218,18 @@ def _make_step(model, optimizer, cfg, losses_of):
             kwargs = {}
             if draws_dropout:
                 kwargs["generator"] = generator
+                if data > 1:
+                    kwargs["rows"] = (column * share, share * data)
+            # REMAT's recompute runs the sharded stages again in the backward
+            with halo.height_sharded(grid, height):
+                with autocast(dtype, device):
+                    outputs = model(x_t1, x_t2, **kwargs)
                 if world > 1:
-                    kwargs["rows"] = (rank * share, share * world)
-            with autocast(dtype, device):
-                outputs = model(x_t1, x_t2, **kwargs)
-            if world > 1:
-                outputs, lab, labels = _global_batch(outputs, lab, labels,
-                                                     rank * share, share * world)
-            metrics = losses_of(outputs, lab, *labels)
-            loss = metrics["loss"]
-            (loss / accum if accum > 1 else loss).backward()
+                    outputs, lab, labels = _global_batch(
+                        outputs, lab, labels, column * share, share * data, grid)
+                metrics = losses_of(outputs, lab, *labels)
+                loss = metrics["loss"]
+                (loss / accum if accum > 1 else loss).backward()
             micro.append({k: v.detach() for k, v in metrics.items()})
         for p in model.parameters():
             if p.grad is None:
@@ -225,18 +244,27 @@ def _make_step(model, optimizer, cfg, losses_of):
     return step
 
 
-def _global_batch(outputs, lab, labels, start: int, total: int):
+def _global_batch(outputs, lab, labels, start: int, total: int, grid):
     """One micro-batch's ``(outputs, is_labeled, labels)`` over the global
     batch of ``total`` rows, of which this rank holds ``[start, start +
-    k)``: float32 global copies (:func:`.parallel.global_rows`, one
-    all-reduce), the outputs with this rank's live rows put back in, so
-    the backward reaches them."""
+    k)`` (on a grid of several space shards, its height block of them):
+    float32 global copies (:func:`.parallel.global_rows`, one all-reduce),
+    the outputs with this rank's live block put back in, so the backward
+    reaches it."""
     heads = outputs if isinstance(outputs, tuple) else (outputs,)
     live = [h.float() for h in heads]
     fixed = list(labels) + ([] if lab is None else [lab])
-    full = group.global_rows(live + fixed, start, total)
-    spliced = tuple(torch.cat([g[:start], h, g[start + h.shape[0]:]])
-                    for g, h in zip(full, live))
+    full = group.global_rows(live + fixed, start, total, grid)
+
+    def splice(g, h):
+        end = start + h.shape[0]
+        if grid.space_size > 1:
+            h0 = grid.space_index * h.shape[2]
+            h = torch.cat([g[start:end, :, :h0], h, g[start:end, :, h0 + h.shape[2]:]],
+                          dim=2)
+        return torch.cat([g[:start], h, g[end:]])
+
+    spliced = tuple(splice(g, h) for g, h in zip(full, live))
     out = spliced if isinstance(outputs, tuple) else spliced[0]
     rest = full[len(live):]
     return out, (None if lab is None else rest[-1]), rest[:len(labels)]

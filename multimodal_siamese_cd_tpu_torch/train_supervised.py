@@ -37,7 +37,7 @@ def run_cli(regime: str, argv=None) -> None:
     trainers.seed_everything(cfg.SEED)
     # a multi-process run (MSCD_DISTRIBUTED=1 under torchrun) logs from
     # rank 0 alone
-    trainers.training_world(cfg)
+    trainers.training_grid(cfg)
 
     wandb_compat.init(
         name=cfg.NAME,

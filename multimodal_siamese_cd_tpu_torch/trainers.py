@@ -22,7 +22,11 @@ with ``MSCD_DISTRIBUTED=1`` the trainer joins the process group of one
 process per card (``torchrun``), each rank loads and steps on its rows of
 every global batch, and the evaluations are sharded over the ranks. Rank 0
 alone writes the checkpoint (the others wait at a barrier); the training
-CLIs log from rank 0 alone.
+CLIs log from rank 0 alone. ``TRAINER.SPATIAL_SHARDS n`` on a world the
+grid accepts (:func:`.parallel.space_shards`) trains height-sharded on a
+``(W / n, n)`` grid: every space rank of a data column loads the column's
+rows, and the evaluations shard each scene group over the columns and its
+padded height over the space ranks (:func:`training_grid`).
 """
 
 from __future__ import annotations
@@ -41,8 +45,9 @@ from .models.factory import create_network, remat_applies
 from .parallel import group, maybe_initialize_distributed
 
 # Extension keys that change nothing in the port, and why; printed when a
-# config sets them (TRAINER.SPATIAL_SHARDS > 1 and MODEL.REMAT on a model
-# that does not take it are declared in declare_knobs).
+# config sets them (a TRAINER.SPATIAL_SHARDS grid the world refuses and
+# MODEL.REMAT on a model that does not take it are declared in
+# declare_knobs).
 DECLARED_NO_OPS = {
     "TRAINER.STEPS_PER_EXECUTION": "runs as 1 (one optimizer step per host "
                                    "dispatch; multi-step execution is not "
@@ -61,9 +66,10 @@ DECLARED_NO_OPS = {
 def declare_knobs(cfg, world: int = 1) -> None:
     """Print each declared no-op the config sets (:data:`DECLARED_NO_OPS`;
     ``MODEL.SYNC_BN`` too in a world of one rank), the JAX package's
-    data-parallel fall-back warning for ``TRAINER.SPATIAL_SHARDS > 1`` (its
-    trainers.py:64-66: spatial sharding is not ported), and
-    ``MODEL.REMAT`` on a model that does not take it."""
+    data-parallel fall-back warning when the world of ``world`` ranks
+    refuses the ``TRAINER.SPATIAL_SHARDS`` grid (its trainers.py:64-66,
+    :func:`.parallel.space_shards`), and ``MODEL.REMAT`` on a model that
+    does not take it."""
     for key, what in DECLARED_NO_OPS.items():
         section, name = key.split(".")
         value = cfg[section].get(name, None)
@@ -74,7 +80,7 @@ def declare_knobs(cfg, world: int = 1) -> None:
               f"one rank has one BatchNorm group, as the JAX package's "
               f"bn_group_count gives a one-device mesh)")
     n_space = int(cfg.TRAINER.get('SPATIAL_SHARDS', 1))
-    if n_space > 1:
+    if n_space > 1 and group.space_shards(cfg, world) == 1:
         print(f"warning: device count / batch {cfg.TRAINER.BATCH_SIZE} / "
               f"crop {cfg.AUGMENTATION.CROP_SIZE} incompatible with "
               f"SPATIAL_SHARDS={n_space}; falling back to data-parallel")
@@ -169,13 +175,14 @@ def _create_or_resume(cfg, device: torch.device):
     return model, train_lib.make_optimizer(model, cfg), 0
 
 
-def _loader(cfg, world: int) -> TrainLoader:
-    """The training loader; in a world of several ranks, of this rank's rows
-    of every global batch."""
+def _loader(cfg, grid: group.Grid) -> TrainLoader:
+    """The training loader; in a world of several data columns, of this
+    rank's column's rows of every global batch."""
     ds = MultimodalCDDataset(cfg, 'training')
     print(f'Dataset with {len(ds)} samples.')
-    rows = None if world == 1 else group.batch_rows(
-        cfg.TRAINER.BATCH_SIZE, int(cfg.TRAINER.get('GRAD_ACCUM', 1)))
+    rows = None if grid.data_size == 1 else group.batch_rows(
+        cfg.TRAINER.BATCH_SIZE, int(cfg.TRAINER.get('GRAD_ACCUM', 1)),
+        grid.data_index, grid.data_size)
     return TrainLoader(
         ds,
         batch_size=cfg.TRAINER.BATCH_SIZE,
@@ -273,36 +280,42 @@ def _window_summary(sets: dict, label_counts: list,
     return out
 
 
-def training_world(cfg) -> int:
+def training_grid(cfg) -> group.Grid:
     """Join the process group when ``MSCD_DISTRIBUTED=1``
-    (:func:`.parallel.maybe_initialize_distributed`) and return the world
-    size (the JAX package's ``_training_mesh``, trainers.py:48-80). A
-    global batch the world does not divide raises: there is no fall-back
-    to one rank."""
+    (:func:`.parallel.maybe_initialize_distributed`) and return this rank's
+    grid (the JAX package's ``_training_mesh``, trainers.py:48-80): the
+    ``TRAINER.SPATIAL_SHARDS`` grid when the world accepts it
+    (:func:`.parallel.space_shards`), else the data-parallel world. A
+    global batch the data-parallel world does not divide raises: there is
+    no fall-back to one rank."""
     maybe_initialize_distributed()
     world = group.world_size()
-    if world > 1 and cfg.TRAINER.BATCH_SIZE % world:
+    n_space = group.space_shards(cfg)
+    if n_space == 1 and world > 1 and cfg.TRAINER.BATCH_SIZE % world:
         raise ValueError(
             f"TRAINER.BATCH_SIZE={cfg.TRAINER.BATCH_SIZE} is not divisible "
             f"by the {world}-device global mesh of this {world}-process run; "
             f"pick a divisible batch")
-    return world
+    return group.grid(n_space)
 
 
 def run_training(cfg, regime: str, device=None) -> None:
     """Train ``cfg`` in ``regime`` ('supervised', 'semisupervised' or
     'dualtask'; another raises ``ValueError``); ``device`` defaults to the
-    card (this rank's, in a multi-process world: :func:`training_world`)."""
-    world = training_world(cfg)
+    card (this rank's, in a multi-process world: :func:`training_grid`)."""
+    grid = training_grid(cfg)
+    world = group.world_size()
     device = resolve_device(device)
-    print_run_config(cfg, f"{device.type}[{world}]")
+    layout = (f"{world}" if grid.space_size == 1
+              else f"{grid.data_size}x{grid.space_size}")
+    print_run_config(cfg, f"{device.type}[{layout}]")
     declare_knobs(cfg, world)
 
     model, optimizer, start_step = _create_or_resume(cfg, device)
     # every rank starts from rank 0's weights and buffers
     group.broadcast_(list(model.state_dict().values()))
     step_fn = train_lib.make_train_step(model, optimizer, cfg, regime)
-    loader = _loader(cfg, world)
+    loader = _loader(cfg, grid)
     profiler = ProfilerHook(cfg, device)
     try:
         steps_per_epoch = len(loader)

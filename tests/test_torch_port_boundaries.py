@@ -38,6 +38,8 @@ PORT_MODULES = [
     "serving", "export_serving",
     # slice 8: data parallelism over processes
     "parallel.distributed", "parallel.group", "parallel.cluster_check",
+    # slice 9: height sharding over a (data, space) grid of ranks
+    "parallel.halo",
 ]
 
 

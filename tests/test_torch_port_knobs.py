@@ -375,6 +375,7 @@ WORKING_KEYS = {
     "TRAINER.EVAL_PAD_MULTIPLE": "evaluation.py",
     "TRAINER.PROFILE_DIR": "trainers.py",
     "TRAINER.RESUME_CHECKPOINT": "trainers.py",
+    "TRAINER.SPATIAL_SHARDS": "parallel/group.py",
     "MODEL.REMAT": "models/factory.py",
     "DATALOADER.WORKER_TYPE": "trainers.py",
     "DATALOADER.SCENE_CACHE": "data/cache.py",
@@ -385,7 +386,6 @@ WORKING_KEYS = {
 DECLARED = {
     "TRAINER.STEPS_PER_EXECUTION": (4, "STEPS_PER_EXECUTION=4: runs as 1"),
     "TRAINER.WEDGE_TIMEOUT": (60.0, "WEDGE_TIMEOUT=60.0: no-op"),
-    "TRAINER.SPATIAL_SHARDS": (2, "SPATIAL_SHARDS=2; falling back to data-parallel"),
     "MODEL.BN_AXIS_NAME": ("batch", "BN_AXIS_NAME=batch: no-op"),
     "MODEL.SYNC_BN": (False, "SYNC_BN=False: no-op on one device"),
     "MODEL.PACKED_FULLRES": (True, "PACKED_FULLRES=True: no-op"),
@@ -415,6 +415,49 @@ def test_every_extension_key_works_raises_or_is_declared(key, fixture_dataset, c
     _set(cfg, key, value)
     trainers.declare_knobs(cfg)
     assert line in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("n_space,crop", [(3, 32), (4, 30)])
+def test_refused_spatial_grid_warns_like_jax_and_runs_data_parallel(
+        fixture_dataset, capsys, n_space, crop):
+    """A ``TRAINER.SPATIAL_SHARDS`` grid the world refuses (here a world of
+    one rank; the JAX package's 8-device CPU mesh refuses the same keys, 8
+    devices % 3 and crop 30 % 4) prints the JAX package's warning word for
+    word (its ``_training_mesh``, trainers.py:64-66) and trains
+    data-parallel: the grid is one space shard, and three steps equal the
+    steps without the key bit for bit."""
+    jcfg, tcfg = _cfgs(fixture_dataset)
+    for cfg in (jcfg, tcfg):
+        cfg.TRAINER.BATCH_SIZE = 4
+        cfg.AUGMENTATION.CROP_SIZE = crop
+        cfg.TRAINER.SPATIAL_SHARDS = n_space
+    mesh = jax_trainers._training_mesh(jcfg)
+    assert mesh.axis_names == ("data",)
+    want = capsys.readouterr().out.splitlines()[0]
+    assert want == (f"warning: device count / batch 4 / crop {crop} incompatible "
+                    f"with SPATIAL_SHARDS={n_space}; falling back to data-parallel")
+    trainers.declare_knobs(tcfg)
+    assert want in capsys.readouterr().out.splitlines()
+    grid = trainers.training_grid(tcfg)
+    assert (grid.space_size, grid.data_size) == (1, 1)
+
+    batch = next(iter(TrainLoader(MultimodalCDDataset(tcfg, "training"), 4,
+                                  num_workers=0, seed=1)))
+    stack, lab = torch.from_numpy(batch["stack"]), torch.from_numpy(batch["is_labeled"])
+    base = create_network(tcfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    runs = []
+    for cfg in (tcfg, copy.deepcopy(tcfg)):
+        if cfg is not tcfg:
+            del cfg.TRAINER["SPATIAL_SHARDS"]
+        model = copy.deepcopy(base)
+        step = train_lib.make_supervised_train_step(model, train_lib.make_optimizer(
+            model, cfg), cfg)
+        runs.append(([float(step(stack, lab, i)["loss"]) for i in range(3)],
+                     model.state_dict()))
+    assert runs[0][0] == runs[1][0]
+    for key, val in runs[0][1].items():
+        assert torch.equal(val, runs[1][1][key]), key
 
 
 def test_remat_on_siamunet_diff_is_declared(fixture_dataset, capsys):
