@@ -146,6 +146,26 @@ script exits non-zero:
      ranks and their distance from the one-process counts; then bn_stats
      timed (as in 3b) at the shapes a rank feeds it in 10a and in 11a.
 
+12. multi-step execution (``TRAINER.STEPS_PER_EXECUTION`` 4: one CUDA graph
+     of the step's augmentation, forward and backward, replayed once per
+     step, AdamW after each replay), each graph window from one seeded state
+     against the same steps run eagerly, the k = 1 step (``GRAPH_LIMITS``:
+     window metrics, running statistics, parameters; the eager steps'
+     bn_stats launches held against the plain
+     version as in phase 7; a replayed window's bn_stats kernels counted in
+     a profiler trace):
+     a. siameseunet at full width (batch 8, 256^2 crops, bf16 autocast,
+     PowerJaccard, AdamW), then with GRAD_ACCUM 2 + REMAT; the k = 1 step
+     and the replayed step timed by CUDA events and by host clock, the
+     device busy share of a window of each, patches/s, the capture time and
+     the peak memory;
+     b. siamunet_diff (dropout masks drawn outside the graph) and
+     whatevernet semi-supervised (a window with an all-labeled and an
+     all-unlabeled batch: presence weights and window means);
+     c. ``trainers.run_training`` with ``STEPS_PER_EXECUTION 4`` to its first
+     log window against a k = 1 run (``GRAPH_LIMITS['metrics']``), and the
+     ``auto`` probe's milliseconds and k.
+
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports only the port,
 torch, numpy and the standard library.
@@ -154,6 +174,7 @@ torch, numpy and the standard library.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import io
 import json
@@ -179,7 +200,8 @@ from multimodal_siamese_cd_tpu_torch import (assessment_change, assessment_seman
                                              trainers, wandb_compat)
 from multimodal_siamese_cd_tpu_torch.config import load_cfg
 from multimodal_siamese_cd_tpu_torch.data.dataset import MultimodalCDDataset
-from multimodal_siamese_cd_tpu_torch.data.loader import TrainLoader, prefetch_to_device
+from multimodal_siamese_cd_tpu_torch.data.loader import (TrainLoader, group_batches,
+                                                          prefetch_to_device)
 from multimodal_siamese_cd_tpu_torch.data.synthetic import generate_fixture_dataset
 from multimodal_siamese_cd_tpu_torch.metrics import MultiThresholdMetric
 from multimodal_siamese_cd_tpu_torch.models import batchnorm
@@ -254,6 +276,16 @@ NCCL_PORT_TRIES = 3
 # phase 11: the grid's space ranks on the one card, the side of 11b's staged
 # crops, the limit of the fp32 sharded scene probabilities (TF32 off)
 SPACE_RANKS, SPACE_BIG_SIDE, SPACE_FP32_LIMIT = 2, 1024, 1e-5
+# phase 12: steps per window (TRAINER.STEPS_PER_EXECUTION); the limits of a
+# CUDA-graph window against the same steps run eagerly, the k = 1 step
+# (each window metric |graph - eager| / |eager|; the L2 norm
+# of the running statistics' difference over theirs; the largest parameter
+# difference over the largest parameter entry), also those of 12c's logged
+# window against a k = 1 run; windows timed in 12a; 12c: 8 AOIs x 8 = 64
+# crops = 8 steps of 8, one LOG_FREQ window of 8
+STEPS_K, STEPS_TIMED_WINDOWS = 4, 3
+GRAPH_LIMITS = {"metrics": 1e-6, "buffers": 5e-5, "params": 1e-3}
+STEPS_MULTIPLIER, STEPS_LOG_FREQ = 8, 8
 # BatchNorm calls of a full-width siameseunet step at each of BN_SHAPES (the
 # stem on both dates and Up1, Down1-4 on both dates, Up4..Up2); each is one
 # forward and one backward bn_stats launch
@@ -318,10 +350,12 @@ def graph_time_ms(fns: dict, order: list, inner: int, rounds: int) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def profile_breakdown(label: str, fn, top: int = 8, match: str = "") -> None:
+def profile_breakdown(label: str, fn, top: int = 8, match: str = "") -> dict | None:
     """One profiled call of ``fn``: the device's busy share of the host
     wall time and the kernels that take the most device time (and the
-    total of those whose name holds ``match``)."""
+    total of those whose name holds ``match``). Returns the wall and busy
+    microseconds and the launches of the ``match`` kernels, or None when the
+    profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -335,18 +369,20 @@ def profile_breakdown(label: str, fn, top: int = 8, match: str = "") -> None:
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         log(f"profile {label}: the profiler saw no device time (not measured)")
-        return
+        return None
     log(f"profile {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us * 100:.1f}%), idle "
         f"{max(0.0, 1 - busy_us / wall_us) * 100:.1f}%")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / busy_us * 100:5.1f}% "
             f"{e.self_device_time_total / 1e3:8.2f} ms x{e.count:<4d} {e.key[:90]}")
+    hits = [e for e in kernels if match and match in e.key]
     if match:
-        hits = [e for e in kernels if match in e.key]
         us = sum(e.self_device_time_total for e in hits)
         log(f"  kernels named *{match}*: {us / busy_us * 100:.1f}% of device "
             f"time, {us / 1e3:.2f} ms in {sum(e.count for e in hits)} launches")
+    return {"wall_us": wall_us, "busy_us": busy_us,
+            "matched": sum(e.count for e in hits)}
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -2604,6 +2640,314 @@ def phase_space(card: dict, rows: dict, dev: torch.device, root: Path,
     return sum(r["launches"] for r in ranks), conf
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+def _windows(cfg, dev: torch.device, n: int, k: int = STEPS_K) -> list:
+    """The first ``n`` super-batches ``(k, B, ...)`` of ``cfg``'s training
+    loader on the card, as the trainer stages them (``group_batches``
+    through ``prefetch_to_device``)."""
+    loader = TrainLoader(MultimodalCDDataset(cfg, "training"), cfg.TRAINER.BATCH_SIZE,
+                         shuffle=True, num_workers=0, seed=1)
+    stream = prefetch_to_device(group_batches(loader, k), dev)
+    try:
+        return [next(stream) for _ in range(n)]
+    finally:
+        stream.close()
+
+
+def _window_diffs(got: dict, want: dict) -> dict:
+    """Each window metric's |got - want| / |want| (0 where both are 0)."""
+    out = {}
+    for key, w in want.items():
+        g, w = float(got[key]), float(w)
+        out[key] = abs(g - w) / abs(w) if w else (0.0 if g == w else float("inf"))
+    return out
+
+
+def _graph_against_eager(rows: dict, dev: torch.device, cfg, regime: str,
+                         windows: list, label: str) -> dict:
+    """From one seeded state: ``windows`` through ``make_scanned_train_step``
+    on the card (a CUDA graph; the first window eager, then captured, every
+    later one replayed) and the same steps eagerly (the k = 1 step), their
+    bn_stats launches held against the plain version
+    (:func:`_watch`). Every replayed window's metrics, and every parameter
+    and running statistic after the last, held against the eager steps'
+    (``GRAPH_LIMITS``); the last window is replayed under the profiler,
+    which counts its bn_stats kernels. Returns the models, the window, the
+    eager step and the numbers."""
+    k = windows[0]["stack"].shape[0]
+    init = create_network(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(cfg.SEED))
+    state = {key: v.clone() for key, v in init.state_dict().items()}
+    model = init
+    window = train_lib.make_scanned_train_step(
+        model, train_lib.make_optimizer(model, cfg), cfg, regime)
+    if window.mode != "graph":
+        raise AssertionError(f"{label}: the window runs {window.mode}, not as a "
+                             f"CUDA graph, on the card in a world of one")
+    torch.cuda.synchronize()
+    _reset_counts()
+    got = [window(windows[0]["stack"], windows[0]["is_labeled"], 0)]
+    torch.cuda.synchronize()
+    first_launches = bn_stats.bn_stats.launches
+    for j, w in enumerate(windows[1:-1], start=1):
+        got.append(window(w["stack"], w["is_labeled"], j * k))
+    _reset_counts()
+    traced = profile_breakdown(
+        f"{label}: one replayed window of {k} steps",
+        lambda: got.append(window(windows[-1]["stack"], windows[-1]["is_labeled"],
+                                  (len(windows) - 1) * k)),
+        match="bn_stats_partial")
+    replay_counted = bn_stats.bn_stats.launches
+
+    eager_model = create_network(cfg, device=dev)
+    eager_model.load_state_dict(state)
+    step = train_lib.make_train_step(eager_model,
+                                     train_lib.make_optimizer(eager_model, cfg), cfg,
+                                     regime)
+    bn_seen, _, keep_bn, _ = _keepers()
+    eager = []
+    with _watch(batchnorm, "bn_stats", keep_bn):
+        # ---- the eager steps, with the launch count around them ----
+        torch.cuda.synchronize()
+        _reset_counts()
+        for j, w in enumerate(windows):
+            metrics = [step(w["stack"][i], w["is_labeled"][i], j * k + i)
+                       for i in range(k)]
+            eager.append(train_lib._reduce_window_metrics(metrics))
+        torch.cuda.synchronize()
+        eager_launches = bn_stats.bn_stats.launches
+        # ------------------------------------------------------------
+    _check_bn_launches(rows, dev, bn_seen, label)
+    diffs = {key: max(_window_diffs(g, e)[key] for g, e in zip(got[1:], eager[1:]))
+             for key in eager[0]}
+    ours, theirs = model.state_dict(), eager_model.state_dict()
+    buffers = [key for key in ours if key.rsplit(".", 1)[-1] in ("running_mean",
+                                                                "running_var")]
+    params = [name for name, _ in model.named_parameters()]
+    bitwise = all(torch.equal(ours[key], theirs[key]) for key in ours) and all(
+        float(g[key]) == float(e[key]) for g, e in zip(got, eager) for key in e)
+    out = {
+        "metrics": max(diffs.values()),
+        "buffers": _rel(ours, theirs, buffers),
+        "params": max(float((ours[n] - theirs[n]).abs().max()) for n in params)
+        / max(float(theirs[n].abs().max()) for n in params),
+    }
+    per_step = eager_launches // (len(windows) * k)
+    replayed = traced["matched"] if traced else None
+    log(f"  {label}: {len(windows)} windows of {k} (the first eager, then captured "
+        f"in {window.graph.capture_s:.2f} s) against {len(windows) * k} eager "
+        f"steps (k = 1): largest window-metric "
+        f"relative difference {out['metrics']:.3g} ({', '.join(f'{key} {v:.3g}' for key, v in diffs.items())}), "
+        f"running statistics {out['buffers']:.3g}, parameters {out['params']:.3g} "
+        f"of the largest entry (limits {GRAPH_LIMITS}); bit-equal {bitwise}; "
+        f"bn_stats launches: first window {first_launches} (eager {k} x "
+        f"{per_step} + the capture's {first_launches - k * per_step}), the "
+        f"replayed window's {replayed} bn_stats kernels in the trace (expected "
+        f"{k * per_step}; the wrapper counted {replay_counted}), eager steps "
+        f"{eager_launches}")
+    if any(out[key] > GRAPH_LIMITS[key] for key in out):
+        raise AssertionError(f"{label}: the graph's window is off the eager steps: "
+                             f"{out}")
+    if (replayed != k * per_step or replay_counted != 0
+            or first_launches != (k + 1) * per_step):
+        raise AssertionError(f"{label}: bn_stats launches of the graph's windows: "
+                             f"first {first_launches}, replayed kernels {replayed}, "
+                             f"expected {k * per_step} a window")
+    return {"model": model, "window": window, "step": step, "got": got,
+            "eager": eager, "launches": first_launches + replayed + eager_launches,
+            "per_step": per_step}
+
+
+def _steps_timing(card: dict, windows: list, graphed: dict) -> None:
+    """12a's times: the k = 1 step and the replayed step (each on its model
+    of :func:`_graph_against_eager`), each over ``STEPS_TIMED_WINDOWS``
+    windows of k steps by CUDA events and by host clock (median), the
+    device busy share of one window of each, patches/s, the capture time
+    and the peak memory."""
+    k, batch = windows[0]["stack"].shape[:2]
+    step = graphed["step"]
+    runs = {
+        "eager (k = 1)": lambda w, g: [step(w["stack"][i], w["is_labeled"][i], g + i)
+                                       for i in range(k)],
+        "graph replay": lambda w, g: graphed["window"](w["stack"], w["is_labeled"], g),
+    }
+    for label, run in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev, host = [], []
+        for r in range(STEPS_TIMED_WINDOWS):
+            w = windows[r % len(windows)]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            run(w, 100 + r * k)
+            end.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3 / k)
+            ev.append(start.elapsed_time(end) / k)
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_breakdown(f"12a {label}: one window of {k} steps",
+                                 lambda: run(windows[0], 200), top=3)
+        busy = ("not measured" if prof is None else
+                f"{prof['busy_us'] / prof['wall_us'] * 100:.1f}% busy")
+        ms_ev, ms_host = statistics.median(ev), statistics.median(host)
+        log(f"  12a {label}: {ms_ev:.2f} ms per step by CUDA events, {ms_host:.2f} "
+            f"ms by host clock (median of {STEPS_TIMED_WINDOWS} windows of {k}), "
+            f"{batch / ms_host * 1e3:.2f} patches/s by host clock, device {busy} "
+            f"over a window, peak device memory {peak / 2**30:.2f} GiB allocated "
+            f"outside a graph's pool (12c has the runs' reserved peaks) "
+            f"({card['smi']})")
+    log(f"  12a capture of the step: {graphed['window'].graph.capture_s:.3f} s host "
+        f"({card['smi']})")
+
+
+def _window_means(entries: list) -> dict:
+    """A semi-supervised log window's payload from window or step metrics
+    (``trainers._window_summary``, as the trainer reduces them)."""
+    sets = {key: [e[key] for e in entries] for key in trainers._REGIMES[
+        "semisupervised"]["keys"]}
+    counts = [tuple(e[key] for key in trainers._LABEL_KEYS if key in e)
+              for e in entries]
+    return trainers._window_summary(sets, counts, True)
+
+
+def phase_steps(card: dict, rows: dict, dev: torch.device, root: Path,
+                aois: list) -> tuple:
+    """Phase 12: multi-step execution on the card. Returns (bn_stats,
+    confusion) launches of its paths."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    bn_total, conf_total = 0, 0
+    try:
+        # 12a: the main path at full width
+        t0 = time.perf_counter()
+        cfg = _train_cfg(root, root / "unused", aois)
+        windows = _windows(cfg, dev, 2)
+        graphed = _graph_against_eager(rows, dev, cfg, "supervised", windows,
+                                       "12a siameseunet")
+        bn_total += graphed["launches"]
+        if graphed["per_step"] != 2 * bn_per_step(cfg.MODEL.TOPOLOGY):
+            raise AssertionError(f"12a: {graphed['per_step']} bn_stats launches a step")
+        _steps_timing(card, windows, graphed)
+        del graphed
+        knob = cfg.clone()
+        knob.TRAINER.GRAD_ACCUM, knob.MODEL.REMAT = 2, True
+        bn_total += _graph_against_eager(rows, dev, knob, "supervised", windows,
+                                         "12a GRAD_ACCUM 2 + REMAT")["launches"]
+        del windows
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+
+        # 12b: the traps that differ by regime
+        diff = _train_cfg(root, root / "unused", aois)
+        diff.MODEL.TYPE = "siamunet_diff"
+        out = _graph_against_eager(rows, dev, diff, "supervised",
+                                   _windows(diff, dev, 2), "12b siamunet_diff")
+        bn_total += out["launches"]
+        del out
+        semi = _semisup_cfg(root, root / "unused", aois, "siamese_mmcr_alpha0500")
+        windows = _windows(semi, dev, 2)
+        ds = MultimodalCDDataset(semi, "training")
+        size = semi.TRAINER.BATCH_SIZE
+        parts = [_partition_batch(ds, True, size, dev),
+                 _partition_batch(ds, False, size, dev)]
+        last = windows[-1]     # one all-labeled and one all-unlabeled batch
+        for key in ("stack", "is_labeled"):
+            last[key] = torch.cat([torch.stack([p[key].to(last[key].dtype)
+                                                for p in parts]), last[key][2:]])
+        out = _graph_against_eager(rows, dev, semi, "semisupervised", windows,
+                                   "12b whatevernet semi-supervised")
+        bn_total += out["launches"]
+        weights = [(float(g["n_lab_steps"]), float(g["n_notlab_steps"]))
+                   for g in out["got"]]
+        eager_weights = [(float(e["n_lab_steps"]), float(e["n_notlab_steps"]))
+                         for e in out["eager"]]
+        means = _window_means(out["got"][1:])
+        eager_means = _window_means(out["eager"][1:])
+        mean_diff = max(_window_diffs(means, eager_means).values())
+        log(f"  12b whatevernet: presence weights (n_lab_steps, n_notlab_steps) per "
+            f"window {weights} (eager {eager_weights}); the replayed window's means "
+            f"{ {key: round(v, 6) for key, v in means.items()} }, largest relative "
+            f"difference from the eager steps' {mean_diff:.3g}")
+        if (weights != eager_weights or max(weights[-1]) >= STEPS_K
+                or mean_diff > GRAPH_LIMITS["metrics"]):
+            raise AssertionError("12b whatevernet: presence weights or window means "
+                                 "off the eager steps'")
+        del out, windows, parts, last
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+
+        # 12c: run_training through the trainer, k = 4 against k = 1
+        ms = trainers.measure_dispatch_latency_ms(device=dev)
+        runs = {}
+        for k in (STEPS_K, 1):
+            run_out = root / f"steps_out_k{k}"
+            run_out.mkdir()
+            run_cfg = _train_cfg(root, run_out, aois)
+            run_cfg.DATALOADER.TRAINING_MULTIPLIER = STEPS_MULTIPLIER
+            run_cfg.LOG_FREQ = STEPS_LOG_FREQ
+            run_cfg.SAVE_CHECKPOINTS = []
+            run_cfg.TRAINER.STEPS_PER_EXECUTION = k
+            wandb_compat.init(name=run_cfg.NAME, config=run_cfg, mode="jsonl",
+                              out_dir=run_out)
+            try:
+                printed = io.StringIO()
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                # ---- the run, with the kernels' launch counts around it ----
+                torch.cuda.synchronize()
+                _reset_counts()
+                w0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    trainers.run_training(run_cfg, "supervised", device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - w0
+                bn_launches, conf_launches, _ = _counts()
+                # ------------------------------------------------------------
+            finally:
+                wandb_compat.finish()
+            sys.stdout.write(printed.getvalue())
+            windows_logged = [r for r in _records(run_out, run_cfg.NAME)
+                              if "train_time" in r]
+            runs[k] = (windows_logged, printed.getvalue(), wall, bn_launches)
+            log(f"  12c k = {k}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                f"GiB allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved "
+                f"(a graph's pool included) ({card['smi']})")
+            bn_total, conf_total = bn_total + bn_launches, conf_total + conf_launches
+        steps_per_epoch = TRAIN_AOIS * STEPS_MULTIPLIER // cfg.TRAINER.BATCH_SIZE
+        k_auto = trainers.auto_steps_per_execution(STEPS_LOG_FREQ, steps_per_epoch, ms)
+        (w_k, printed_k, wall_k, bn_k), (w_1, _, wall_1, _) = runs[STEPS_K], runs[1]
+        rel = (max(_window_diffs({"loss": a["loss"]}, {"loss": b["loss"]})["loss"]
+                   for a, b in zip(w_k, w_1)) if w_k and len(w_k) == len(w_1)
+               else float("inf"))
+        per_step = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)
+        log(f"  12c run_training STEPS_PER_EXECUTION {STEPS_K}: windows "
+            f"{[(r['step'], round(r['loss'], 7)) for r in w_k]} in {wall_k:.1f} s "
+            f"wall (evals included), k = 1: {[(r['step'], round(r['loss'], 7)) for r in w_1]} "
+            f"in {wall_1:.1f} s; largest relative loss difference {rel:.3g} (limit "
+            f"{GRAPH_LIMITS['metrics']}); train_time k = {STEPS_K} "
+            f"{w_k[0]['train_time'] if w_k else float('nan'):.3f} s, k = 1 "
+            f"{w_1[0]['train_time'] if w_1 else float('nan'):.3f} s; bn_stats launches "
+            f"the wrapper counted {bn_k} (expected {(STEPS_K + 1) * per_step}: the "
+            f"first window's eager steps and the capture); auto's dispatch probe "
+            f"{ms:.4f} ms -> k = {k_auto} at LOG_FREQ {STEPS_LOG_FREQ}, "
+            f"{steps_per_epoch} steps/epoch ({card['smi']})")
+        if (rel > GRAPH_LIMITS["metrics"] or [r["step"] for r in w_k] != [STEPS_LOG_FREQ]
+                or f"STEPS_PER_EXECUTION={STEPS_K}: {STEPS_K} steps per window, one "
+                   f"CUDA graph" not in printed_k
+                or bn_k != (STEPS_K + 1) * per_step):
+            raise AssertionError("12c: the k = 4 run's logged window is off the k = 1 "
+                                 "run's, or it did not run as a CUDA graph")
+        log(f"phase 12: {time.perf_counter() - t0:.1f} s wall (12a {t1 - t0:.1f} s, "
+            f"12b {t2 - t1:.1f} s, 12c {time.perf_counter() - t2:.1f} s)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return bn_total, conf_total
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2642,6 +2986,9 @@ def main() -> None:
         rows["bn_stats"]["launches"] += bn_launches
         rows["confusion_counts"]["launches"] += conf_launches
         log(f"phase 11: {time.perf_counter() - t10:.1f} s wall, checks included")
+        bn_launches, conf_launches = phase_steps(card, rows, dev, root, aois)
+        rows["bn_stats"]["launches"] += bn_launches
+        rows["confusion_counts"]["launches"] += conf_launches
     finally:
         tmp.cleanup()
     log(f"kernels: {json.dumps(list(rows))}; chip_smoke wall "

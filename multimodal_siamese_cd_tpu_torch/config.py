@@ -41,11 +41,11 @@ EXTENSION_KEYS = frozenset({
     "TRAINER.PRECISION",           # factory.py: bf16/fp32 compute dtype
     "TRAINER.GRAD_ACCUM",          # train_lib.py: micro-batches
     "TRAINER.SPATIAL_SHARDS",      # parallel/group.py: the (data, space) grid
-    "TRAINER.STEPS_PER_EXECUTION", # declared no-op: runs as 1
+    "TRAINER.STEPS_PER_EXECUTION", # trainers.py: steps per window (graph)
     "TRAINER.EVAL_PAD_MULTIPLE",   # evaluation.py: eval bucket granularity
     "TRAINER.PROFILE_DIR",         # trainers.py: torch.profiler trace
     "TRAINER.RESUME_CHECKPOINT",   # trainers.py: resume
-    "TRAINER.WEDGE_TIMEOUT",       # declared no-op: a TPU dispatch probe
+    "TRAINER.WEDGE_TIMEOUT",       # trainers.py: the dispatch probe's watchdog
     "DATALOADER.WORKER_TYPE",      # loader.py: thread or process workers
     "DATALOADER.SCENE_CACHE",      # cache.py: packed scene cache on/off
     "DATALOADER.CACHE_DIR",        # cache.py: cache location override

@@ -19,7 +19,9 @@ package's ``data/loader.py``).
   children, so its rows are exactly the global batch's.
 * :func:`prefetch_to_device` copies each batch through pinned host memory
   with ``non_blocking=True`` on a side stream, and the consumer's stream
-  waits on an event recorded after the copy.
+  waits on an event recorded after the copy; a super-batch of
+  :func:`group_batches` (``TRAINER.STEPS_PER_EXECUTION``) moves the same
+  way, one upload per window.
 """
 
 from __future__ import annotations
@@ -206,6 +208,25 @@ class TrainLoader:
         if self._processes is not None:
             self._processes.shutdown(wait=True, cancel_futures=True)
             self._processes = None
+
+
+def group_batches(iterator: Iterable[dict], k: int) -> Iterator[dict]:
+    """Stack consecutive batches into ``(k, B, ...)`` super-batches for
+    multi-step execution (:func:`..train_lib.make_scanned_train_step`; the
+    JAX package's ``group_batches``). Array keys gain a leading axis;
+    metadata keys become lists. A trailing partial group is dropped (the
+    trainer's execution plan checks divisibility up front)."""
+    buf: list[dict] = []
+    for batch in iterator:
+        buf.append(batch)
+        if len(buf) < k:
+            continue
+        out: dict = {}
+        for key in buf[0]:
+            vals = [b[key] for b in buf]
+            out[key] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals
+        buf = []
+        yield out
 
 
 def prefetch_to_device(iterator: Iterable[dict], device):

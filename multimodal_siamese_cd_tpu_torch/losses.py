@@ -33,14 +33,16 @@ def _flat_masked(y: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     return (y * _expand(mask, y)).reshape(-1)
 
 
-def _mask_count(shape, mask) -> torch.Tensor:
-    """Number of selected elements (for mean-type losses): each mask entry
-    counts the elements of the axes it does not span."""
+def _mask_count(shape, mask, device) -> torch.Tensor:
+    """Number of selected elements (for mean-type losses) on ``device``:
+    each mask entry counts the elements of the axes it does not span. The
+    count is made on the device, not copied there from the host, so a step
+    captured as a CUDA graph holds it."""
     per_entry = 1
     if mask is None:
         for d in shape:
             per_entry *= d
-        return torch.tensor(float(per_entry))
+        return torch.full((), float(per_entry), device=device)
     for d in shape[mask.dim():]:
         per_entry *= d
     return mask.to(torch.float32).sum() * per_entry
@@ -54,7 +56,7 @@ def bce_with_logits_loss(y_logit, y_true, mask=None):
     x, z = y_logit, y_true
     elem = torch.clamp_min(x, 0) - x * z + torch.log1p(torch.exp(-x.abs()))
     elem = _flat_masked(elem, mask)
-    count = _mask_count(y_logit.shape, mask).to(elem.device)
+    count = _mask_count(y_logit.shape, mask, elem.device)
     return elem.sum() / torch.clamp_min(count, 1.0)
 
 
@@ -143,7 +145,7 @@ def mean_square_error_loss(y_pred, y_true, mask=None):
     reference loss_functions.py:22-29). Applied to inputs as they are (no
     sigmoid)."""
     d = _flat_masked((y_pred - y_true) ** 2, mask)
-    count = _mask_count(y_pred.shape, mask).to(d.device)
+    count = _mask_count(y_pred.shape, mask, d.device)
     return d.sum() / torch.clamp_min(count, 1.0)
 
 

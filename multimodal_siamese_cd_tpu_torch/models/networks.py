@@ -303,20 +303,72 @@ def siamunet_diff_flax_names() -> dict:
     return names
 
 
-def spatial_dropout(x: torch.Tensor, p: float, generator: torch.Generator,
+class DropoutDraws:
+    """The dropout uniforms of a step captured as a CUDA graph, in place of
+    its generator (nothing captured can seed one). The last eager step
+    before the capture draws through :meth:`record`: from its generator, as
+    the eager forward draws, keeping each draw. :meth:`rewind` makes those
+    the static buffers (outside the graph's memory pool: a tensor made
+    during the capture would share memory with the graph's temporaries,
+    which a replay writes before the tensor's first use), and the captured
+    forward takes them in call order. Before each replay :meth:`refill`
+    draws every buffer again, in that order, from the step's generator, so
+    a replayed step's masks equal those its eager forward draws."""
+
+    def __init__(self):
+        self.buffers: list[torch.Tensor] = []
+        self._next = 0
+        self._generator = None
+
+    def record(self, generator: torch.Generator) -> None:
+        self.buffers, self._next, self._generator = [], 0, generator
+
+    def rewind(self) -> None:
+        """Stop recording; copies of the draws (on the current stream) are
+        handed out again from the first."""
+        self.buffers = [u.clone() for u in self.buffers]
+        self._next, self._generator = 0, None
+
+    def rand(self, shape: tuple, device) -> torch.Tensor:
+        if self._generator is not None:
+            u = torch.rand(shape, generator=self._generator, device=device)
+            self.buffers.append(u)
+            return u
+        if (self._next == len(self.buffers)
+                or tuple(self.buffers[self._next].shape) != tuple(shape)):
+            raise RuntimeError(f"dropout draw {self._next} of shape {tuple(shape)}: "
+                               f"the recorded step drew "
+                               f"{[tuple(u.shape) for u in self.buffers]}")
+        u = self.buffers[self._next]
+        self._next += 1
+        return u
+
+    def refill(self, generator: torch.Generator) -> None:
+        for u in self.buffers:
+            u.copy_(torch.rand(u.shape, generator=generator, device=u.device))
+        self._next = 0
+
+
+def spatial_dropout(x: torch.Tensor, p: float,
+                    generator: torch.Generator | DropoutDraws,
                     rows: tuple[int, int] | None = None) -> torch.Tensor:
     """flax's ``nn.Dropout(p, broadcast_dims=(1, 2))`` on NHWC (the JAX
     package's networks.py:304) for NCHW: one keep draw per (sample,
-    channel), ``uniform < 1 - p`` from ``generator`` (on ``x``'s device);
-    kept channels divided by ``1 - p``, dropped ones zero. ``rows = (start,
-    total)``: ``x`` holds rows ``[start, start + B)`` of a global batch of
-    ``total`` (one data column's share); the draw is the global batch's,
-    and ``x`` takes its rows of it — every space rank of the column the
-    same mask, whatever height block it holds."""
+    channel), ``uniform < 1 - p`` from ``generator`` (on ``x``'s device; a
+    :class:`DropoutDraws` hands out a captured step's); kept channels
+    divided by ``1 - p``, dropped ones zero. ``rows = (start, total)``:
+    ``x`` holds rows ``[start, start + B)`` of a global batch of ``total``
+    (one data column's share); the draw is the global batch's, and ``x``
+    takes its rows of it — every space rank of the column the same mask,
+    whatever height block it holds."""
     keep = 1.0 - p
     start, total = (0, x.shape[0]) if rows is None else rows
-    mask = torch.rand((total, x.shape[1], 1, 1), generator=generator,
-                      device=x.device)[start:start + x.shape[0]] < keep
+    shape = (total, x.shape[1], 1, 1)
+    if isinstance(generator, DropoutDraws):
+        u = generator.rand(shape, x.device)
+    else:
+        u = torch.rand(shape, generator=generator, device=x.device)
+    mask = u[start:start + x.shape[0]] < keep
     return torch.where(mask, x / keep, x.new_zeros(()))
 
 
@@ -336,8 +388,9 @@ class SiamUnetDiff(nn.Module):
 
     In train mode ``forward`` needs ``generator``, the explicit generator of
     the dropout draws (the train step passes its per-step generator, see
-    :func:`..train_lib.augment_generator`); torch's global generator is
-    never used.
+    :func:`..train_lib.augment_generator`; a step captured as a CUDA graph
+    passes its :class:`DropoutDraws`); torch's global generator is never
+    used.
 
     Height sharding (:mod:`..parallel.halo`): encoder stage ``s`` computes
     pyramid level ``s - 1``, its 3x3 convs and the decoder's stride-1
@@ -396,7 +449,7 @@ class SiamUnetDiff(nn.Module):
         return x, skips
 
     def forward(self, x_t1: torch.Tensor, x_t2: torch.Tensor,
-                generator: torch.Generator | None = None,
+                generator: torch.Generator | DropoutDraws | None = None,
                 rows: tuple[int, int] | None = None) -> torch.Tensor:
         """``rows``: the inputs are one rank's rows of a global batch
         (:func:`spatial_dropout`)."""

@@ -9,6 +9,7 @@ are taken on fp32 logits, and AdamW updates the parameters in place.
 from __future__ import annotations
 
 import contextlib
+import time
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ from . import losses
 from .data.augmentations import apply_augmentation, draw_augmentation
 from .models.batchnorm import BatchNorm2d
 from .models.factory import compute_dtype
+from .models.networks import DropoutDraws
 from .parallel import group, halo
 
 
@@ -91,6 +93,32 @@ def augment_generator(seed: int, step: int, device: torch.device) -> torch.Gener
     return gen
 
 
+def augment_decisions(cfg, layout: dict, n: int, dtype: torch.dtype,
+                      generator: torch.Generator, device) -> dict:
+    """The config's per-sample augmentation decisions for a batch of ``n``,
+    drawn from ``generator`` on ``device``
+    (:func:`..data.augmentations.draw_augmentation`)."""
+    a = cfg.AUGMENTATION
+    return draw_augmentation(
+        n, layout["n_img"], flip=bool(a.RANDOM_FLIP),
+        rotate=bool(a.RANDOM_ROTATE), color_shift=bool(a.COLOR_SHIFT),
+        gamma=bool(a.GAMMA_CORRECTION), generator=generator, dtype=dtype,
+        device=device)
+
+
+def _augmented(stack: torch.Tensor, layout: dict, dtype: torch.dtype,
+               decisions: dict, rows: np.ndarray | None = None) -> torch.Tensor:
+    """``stack`` cast to ``dtype`` with ``decisions`` applied; ``rows``: the
+    decisions are the global batch's and ``stack`` holds these rows of it."""
+    stack = stack.to(dtype)
+    if rows is not None:
+        index = torch.as_tensor(rows, device=stack.device)
+        decisions = {k: None if v is None else v[index]
+                     for k, v in decisions.items()}
+    return apply_augmentation(stack, n_img_channels=layout["n_img"],
+                              **decisions)
+
+
 def augment(stack: torch.Tensor, cfg, layout: dict, dtype: torch.dtype,
             generator: torch.Generator, rows: np.ndarray | None = None,
             total: int | None = None) -> torch.Tensor:
@@ -100,20 +128,9 @@ def augment(stack: torch.Tensor, cfg, layout: dict, dtype: torch.dtype,
     of ``total`` (one data column's share, :func:`..parallel.batch_rows`);
     the decisions are drawn for the global batch and each row takes its
     own."""
-    a = cfg.AUGMENTATION
-    stack = stack.to(dtype)
     n = stack.shape[0] if rows is None else total
-    decisions = draw_augmentation(
-        n, layout["n_img"], flip=bool(a.RANDOM_FLIP),
-        rotate=bool(a.RANDOM_ROTATE), color_shift=bool(a.COLOR_SHIFT),
-        gamma=bool(a.GAMMA_CORRECTION), generator=generator, dtype=dtype,
-        device=stack.device)
-    if rows is not None:
-        index = torch.as_tensor(rows, device=stack.device)
-        decisions = {k: None if v is None else v[index]
-                     for k, v in decisions.items()}
-    return apply_augmentation(stack, n_img_channels=layout["n_img"],
-                              **decisions)
+    decisions = augment_decisions(cfg, layout, n, dtype, generator, stack.device)
+    return _augmented(stack, layout, dtype, decisions, rows)
 
 
 def _make_step(model, optimizer, cfg, losses_of):
@@ -128,7 +145,11 @@ def _make_step(model, optimizer, cfg, losses_of):
     augmentation and, for a model with dropout, its masks). The step
     computes in the config's dtype on the card and
     in float32 on the CPU; the metrics are left on the device (no
-    synchronisation).
+    synchronisation). Its parts are ``step.draw(batch, global_step) ->
+    (generator, decisions)``, the step's random decisions seeded on the
+    host; ``step.grads(stack, is_labeled, decisions, dropout) -> metrics``,
+    the augmentation, forward and backward, which :class:`StepGraph`
+    captures; and ``step.update()``, AdamW.
 
     ``TRAINER.GRAD_ACCUM: a > 1`` (the JAX package's train_lib.py:229-304)
     splits the batch into ``a`` contiguous micro-batches (a size ``a`` does
@@ -200,14 +221,25 @@ def _make_step(model, optimizer, cfg, losses_of):
     # generator, after the augmentation's draws
     draws_dropout = getattr(model, "draws_dropout", False)
 
-    def step(stack: torch.Tensor, is_labeled, global_step: int) -> dict:
+    def draw(batch: int, global_step: int) -> tuple:
+        """The step's random decisions: its generator, and from it the
+        augmentation of the global batch of ``batch`` rows (a model with
+        dropout then draws its masks from the same generator)."""
+        generator = augment_generator(cfg.SEED, global_step, device)
+        return generator, augment_decisions(cfg, layout, batch, dtype,
+                                            generator, device)
+
+    def grads(stack: torch.Tensor, is_labeled, decisions: dict, dropout) -> dict:
+        """The step's augmentation, forward and backward on drawn decisions,
+        leaving every parameter's gradient; ``dropout``: the generator (or
+        :class:`.models.networks.DropoutDraws`) of the model's masks.
+        Returns the metrics."""
         batch = stack.shape[0] * data
         rows = group.batch_rows(batch, accum, column, data)
         share = stack.shape[0] // accum        # the column's rows per micro-batch
         model.train()
-        generator = augment_generator(cfg.SEED, global_step, device)
-        stack_aug = augment(stack, cfg, layout, dtype, generator,
-                            rows if data > 1 else None, batch)
+        stack_aug = _augmented(stack, layout, dtype, decisions,
+                               rows if data > 1 else None)
         height = stack_aug.shape[2] // n_space   # this space rank's crop rows
         stack_aug = stack_aug.narrow(2, grid.space_index * height, height)
         labs = [None] * accum if is_labeled is None else is_labeled.chunk(accum)
@@ -217,7 +249,7 @@ def _make_step(model, optimizer, cfg, losses_of):
             x_t1, x_t2, *labels = split_stack(part, layout)
             kwargs = {}
             if draws_dropout:
-                kwargs["generator"] = generator
+                kwargs["generator"] = dropout
                 if data > 1:
                     kwargs["rows"] = (column * share, share * data)
             # REMAT's recompute runs the sharded stages again in the backward
@@ -234,13 +266,24 @@ def _make_step(model, optimizer, cfg, losses_of):
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        return micro[0] if accum == 1 else _reduce_window_metrics(micro)
+
+    def update() -> None:
+        """The gradients summed over the ranks, AdamW, and without sync-BN
+        rank 0's running statistics."""
         if world > 1:
             group.all_reduce_flat_([p.grad for p in model.parameters()])
         optimizer.step()
         if world > 1 and not sync_bn:
             group.broadcast_(bn_buffers, src=0)
-        return micro[0] if accum == 1 else _reduce_window_metrics(micro)
 
+    def step(stack: torch.Tensor, is_labeled, global_step: int) -> dict:
+        generator, decisions = draw(stack.shape[0] * data, global_step)
+        metrics = grads(stack, is_labeled, decisions, generator)
+        update()
+        return metrics
+
+    step.draw, step.grads, step.update = draw, grads, update
     return step
 
 
@@ -400,6 +443,131 @@ def make_train_step(model, optimizer, cfg, regime: str):
         raise ValueError(f"unknown training regime {regime!r}; "
                          f"known: {sorted(_STEPS)}")
     return _STEPS[regime](model, optimizer, cfg)
+
+
+# --------------------------------------------------------------------------
+# Multi-step execution (TRAINER.STEPS_PER_EXECUTION)
+# --------------------------------------------------------------------------
+
+class StepGraph:
+    """The augmentation, forward and backward of one train step captured as
+    a CUDA graph, replayed once per step and followed by the step's AdamW
+    update, run eagerly (the card's counterpart of the JAX package's
+    ``lax.scan`` over steps).
+
+    The static inputs are the wire batch, its label mask, the augmentation
+    decisions and the dropout uniforms (:class:`.models.networks.
+    DropoutDraws`). The graph holds the augmentation, forward and backward,
+    and the gradients: they are set to None before the capture, so the
+    backward writes them in the graph's memory, and the zero gradient of an
+    unreached parameter is a captured fill. Before each replay the step's
+    decisions are drawn on the host-seeded generator of ``(cfg.SEED,
+    global_step)`` exactly as the eager step draws them (the
+    augmentation's, then the dropout's) and copied in; after it the metric
+    scalars are cloned out and AdamW runs as in the eager step (not
+    capturable, its step counters on the host), so a replayed step's
+    numbers equal the eager step's bit for bit and checkpoints are the
+    same whatever the grouping.
+
+    The first call runs its steps eagerly, on a side stream, as the real
+    steps (torch's warm-up before a capture; the last of them records its
+    dropout draws), then captures; every later call replays. Every static
+    input is made before the capture: one made during it would share memory
+    with the graph's temporaries. After the capture nothing may replace a
+    parameter or buffer; the batch shape is fixed (the loader drops the
+    last partial batch). A capture or replay that fails raises."""
+
+    def __init__(self, step, device: torch.device):
+        self.step, self.device = step, device
+        self.graph = None
+        self.capture_s = None      # host seconds the capture took
+
+    def __call__(self, stacks: torch.Tensor, labs: list, global_step: int) -> list:
+        """Steps ``global_step + i`` on ``stacks[i]``, ``labs[i]``; returns
+        each step's metrics."""
+        if self.graph is None:
+            return self._warm_up_and_capture(stacks, labs, global_step)
+        out = []
+        for i in range(len(stacks)):
+            generator, decisions = self.step.draw(stacks.shape[1], global_step + i)
+            for key, value in decisions.items():
+                if value is not None:
+                    self.decisions[key].copy_(value)
+            self.dropout.refill(generator)
+            self.stack.copy_(stacks[i])
+            if labs[i] is not None:
+                self.lab.copy_(labs[i])
+            self.graph.replay()
+            out.append({k: v.clone() for k, v in self.metrics.items()})
+            self.step.update()
+        return out
+
+    def _warm_up_and_capture(self, stacks, labs, global_step) -> list:
+        k = len(stacks)
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        self.dropout = DropoutDraws()
+        with torch.cuda.stream(side):
+            out = [self.step(stacks[i], labs[i], global_step + i)
+                   for i in range(k - 1)]
+            # the last one keeps its dropout draws: their shapes and order
+            generator, decisions = self.step.draw(stacks.shape[1], global_step + k - 1)
+            self.dropout.record(generator)
+            out.append(self.step.grads(stacks[k - 1], labs[k - 1], decisions,
+                                       self.dropout))
+            self.step.update()
+        current.wait_stream(side)
+        # static inputs, all made outside the graph's memory pool
+        self.dropout.rewind()
+        self.stack = torch.empty_like(stacks[0])
+        self.lab = None if labs[0] is None else torch.empty_like(labs[0])
+        self.decisions = {key: None if v is None else torch.empty_like(v)
+                          for key, v in decisions.items()}
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # thread_local: the loader's staging thread keeps copying meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.metrics = self.step.grads(self.stack, self.lab, self.decisions,
+                                           self.dropout)
+        self.capture_s = time.perf_counter() - t0
+        self.graph = graph
+        return out
+
+
+def make_scanned_train_step(model, optimizer, cfg, regime: str):
+    """k optimizer steps per call (``TRAINER.STEPS_PER_EXECUTION``; the JAX
+    package's ``make_scanned_train_step``, train_lib.py:489-522).
+
+    Returns ``window(stacks, is_labeled, global_step) -> metrics``:
+    ``stacks`` is a ``(k, B, C, S, S)`` super-batch on the model's device
+    (:func:`.data.loader.group_batches`), ``is_labeled`` its ``(k, B)``
+    label masks or None; step ``i`` is :func:`make_train_step`'s at global
+    step ``global_step + i``, with the same draws. The metrics are reduced
+    over the window by :func:`_reduce_window_metrics` (semi-supervised: the
+    presence weights ``n_lab_steps`` / ``n_notlab_steps`` summed).
+    ``TRAINER.GRAD_ACCUM`` and ``MODEL.REMAT`` compose as in the step.
+
+    ``window.mode`` says how the steps run: ``'graph'`` on the card in a
+    world of one rank (one :class:`StepGraph`, ``window.graph``), else
+    ``'eager'``, the k steps in turn (the CPU, and a world of several
+    ranks, whose collectives are not captured)."""
+    step = make_train_step(model, optimizer, cfg, regime)
+    device = next(model.parameters()).device
+    graph = None
+    if device.type == "cuda" and group.world_size() == 1:
+        graph = StepGraph(step, device)
+
+    def window(stacks: torch.Tensor, is_labeled, global_step: int) -> dict:
+        labs = [None] * len(stacks) if is_labeled is None else list(is_labeled)
+        if graph is not None:
+            return _reduce_window_metrics(graph(stacks, labs, global_step))
+        return _reduce_window_metrics([step(stacks[i], labs[i], global_step + i)
+                                       for i in range(len(stacks))])
+
+    window.mode = "eager" if graph is None else "graph"
+    window.graph = graph
+    return window
 
 
 # --------------------------------------------------------------------------

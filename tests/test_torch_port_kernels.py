@@ -472,3 +472,51 @@ def test_cuda_two_ranks_share_the_card_over_gloo(tmp_path):
                for k, g in ranks[0]["grads"].items())
     norm = sum(float(g.double().square().sum()) for g in one["grads"].values())
     assert diff <= (5e-2) ** 2 * norm
+
+
+# --- the CUDA graph of the train step (TRAINER.STEPS_PER_EXECUTION) ------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["siameseunet", "siamunet_diff"])
+def test_cuda_graph_window_equals_the_eager_steps(model_type, monkeypatch):
+    """Needs the card: two windows of k = 2 through ``make_scanned_train_step``
+    (the first eager, then captured; the second replayed) equal four eager
+    steps from the same weights bit for bit, metrics, parameters and
+    buffers, at topology [8, 16], batch 2, 32 px crops, bf16, flips and
+    rotations on (siamunet_diff: its dropout masks too), cuDNN
+    deterministic."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the step is captured only there")
+    from multimodal_siamese_cd_tpu_torch import train_lib
+    from multimodal_siamese_cd_tpu_torch.config import load_cfg
+    from multimodal_siamese_cd_tpu_torch.models.factory import create_network
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = load_cfg("siamese")
+    cfg.MODEL.TYPE = model_type
+    cfg.MODEL.TOPOLOGY = [8, 16]
+    gen = torch.Generator().manual_seed(3)
+    stacks = torch.rand((2, 2, 2, 15, 32, 32), generator=gen)   # windows, k, B
+    stacks[:, :, :, 12:] = (stacks[:, :, :, 12:] > 0.7).float()  # label planes
+    stacks, labs = stacks.cuda(), torch.ones((2, 2, 2), device="cuda")
+    results = []
+    for graphed in (True, False):
+        model = create_network(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(1))
+        optimizer = train_lib.make_optimizer(model, cfg)
+        if graphed:
+            window = train_lib.make_scanned_train_step(model, optimizer, cfg,
+                                                       "supervised")
+            assert window.mode == "graph"
+            metrics = [window(stacks[j], labs[j], 2 * j)["loss"] for j in range(2)]
+        else:
+            step = train_lib.make_train_step(model, optimizer, cfg, "supervised")
+            losses = [step(stacks[j, i], labs[j, i], 2 * j + i)["loss"]
+                      for j in range(2) for i in range(2)]
+            metrics = [torch.stack(losses[:2]).mean(), torch.stack(losses[2:]).mean()]
+        results.append(([float(m) for m in metrics],
+                        {k: v.clone() for k, v in model.state_dict().items()}))
+    (graph_m, graph_sd), (eager_m, eager_sd) = results
+    assert graph_m == eager_m
+    for key, value in eager_sd.items():
+        assert torch.equal(graph_sd[key], value), key

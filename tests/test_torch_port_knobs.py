@@ -376,6 +376,8 @@ WORKING_KEYS = {
     "TRAINER.PROFILE_DIR": "trainers.py",
     "TRAINER.RESUME_CHECKPOINT": "trainers.py",
     "TRAINER.SPATIAL_SHARDS": "parallel/group.py",
+    "TRAINER.STEPS_PER_EXECUTION": "trainers.py",
+    "TRAINER.WEDGE_TIMEOUT": "trainers.py",
     "MODEL.REMAT": "models/factory.py",
     "DATALOADER.WORKER_TYPE": "trainers.py",
     "DATALOADER.SCENE_CACHE": "data/cache.py",
@@ -384,8 +386,6 @@ WORKING_KEYS = {
 }
 # the values that make a key a declared no-op, and the line the trainer prints
 DECLARED = {
-    "TRAINER.STEPS_PER_EXECUTION": (4, "STEPS_PER_EXECUTION=4: runs as 1"),
-    "TRAINER.WEDGE_TIMEOUT": (60.0, "WEDGE_TIMEOUT=60.0: no-op"),
     "MODEL.BN_AXIS_NAME": ("batch", "BN_AXIS_NAME=batch: no-op"),
     "MODEL.SYNC_BN": (False, "SYNC_BN=False: no-op on one device"),
     "MODEL.PACKED_FULLRES": (True, "PACKED_FULLRES=True: no-op"),

@@ -447,7 +447,8 @@ def test_cli_checkpoint_and_latest_resume(fixture_dataset, tmp_path, step_setup,
     monkeypatch.setattr(TrainLoader, "__iter__", spy)
     train_supervised.main(base + opts)
     printed = capsys.readouterr().out
-    assert "STEPS_PER_EXECUTION=4: runs as 1" in printed
+    assert ("warning: STEPS_PER_EXECUTION=4 incompatible with steps/epoch=2 "
+            "or LOG_FREQ=2; using 1") in printed
     assert "epoch float 1.0 (step 2) - epoch 1" in printed
     log = (out / "logs" / "siamese.jsonl").read_text()
     assert '"train_time"' in log and '"test F1"' in log
