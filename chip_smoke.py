@@ -9,14 +9,17 @@ script exits non-zero:
   1. device and toolchain: card name and power limit (nvidia-smi), torch
      and CUDA versions, triton and nvcc versions, ninja;
   2. build every kernel of the paths from the sources in the checkout, one
-     nvcc per kernel, all started together;
+     nvcc per kernel, and the native GeoTIFF decoders (``build_native``:
+     ``native/fastcodecs.c`` with setuptools), all started together; the
+     decoders must load;
   3. each kernel against its plain PyTorch version on the card, and its time
      per launch at the main path's shape beside its bound:
        a. confusion counts with both rules (the training metric's rounding
           rule and the assessment's strict ``p > thr``), exact integer
           equality (ties at the threshold and +-1 ulp, masked tails, ragged
           sizes, several thresholds, a scene past 2^24 valid pixels), two
-          launches equal;
+          launches equal; its time per launch back to back and from CUDA
+          graphs of 20 launches, the two rules replayed in turns;
        b. bn_stats at every BatchNorm shape of a full-width training step and
           at ragged shapes, bf16 and f32, ``a is b`` and not, against the
           plain version in float64 (|kernel - ref| <= 1e-5 · Σ|a·b| per
@@ -165,6 +168,24 @@ script exits non-zero:
      c. ``trainers.run_training`` with ``STEPS_PER_EXECUTION 4`` to its first
      log window against a k = 1 run (``GRAPH_LIMITS['metrics']``), and the
      ``auto`` probe's milliseconds and k.
+13. the training lifecycle through the port's CLIs (phase 13's datasets
+     are written by a process of their own while phase 4's split is
+     written, after phase 3's host-timed measurements):
+     a. ``convergence_run``'s command for the hard fixture at the JAX
+     package's settings (``CONVERGENCE_ARGS``: 512^2 scenes, signal 0.3, 6
+     epochs of 64 steps of 8, LOG_FREQ 16, full width, bf16) run through
+     ``train_supervised.main`` in this process, every bn_stats and
+     confusion launch counted and held against the plain versions as in
+     phase 7; the F1 trajectory, wall seconds and patches/s, and the
+     trajectory held to ``CONVERGENCE_BAND``;
+     b. ``lifecycle_run`` at its smoke shape (``LIFECYCLE_ARGS``), each CLI a
+     child process of this script (``--watch-child``: the launch counts are
+     copied into a memory-mapped file after every call, so they survive
+     the SIGKILL, and the kept launches are saved for this process to hold
+     against the plain versions): a SIGKILL of the training process once
+     the seam window is logged, the resume from ``latest``, every seam
+     record within 1e-6, and the assessment CLI's line equal to
+     ``assessment_change`` in this process on the same checkpoint.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports only the port,
@@ -176,8 +197,10 @@ from __future__ import annotations
 import contextlib
 import gc
 import hashlib
+import importlib
 import io
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -187,17 +210,21 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from multimodal_siamese_cd_tpu_torch import (assessment_change, assessment_semantics,
-                                             checkpoints, evaluation, export_serving,
-                                             geofiles, metrics, parallel, png,
+                                             build_native, checkpoints,
+                                             convergence_run, evaluation,
+                                             experiment_manager, export_serving,
+                                             geofiles, geotiff, lifecycle_run,
+                                             metrics, parallel, parsers, png,
                                              preprocessing, qualitative_comparison,
                                              sanity_check, serving, train_lib,
-                                             trainers, wandb_compat)
+                                             train_supervised, trainers, wandb_compat)
 from multimodal_siamese_cd_tpu_torch.config import load_cfg
 from multimodal_siamese_cd_tpu_torch.data.dataset import MultimodalCDDataset
 from multimodal_siamese_cd_tpu_torch.data.loader import (TrainLoader, group_batches,
@@ -286,6 +313,20 @@ SPACE_RANKS, SPACE_BIG_SIDE, SPACE_FP32_LIMIT = 2, 1024, 1e-5
 STEPS_K, STEPS_TIMED_WINDOWS = 4, 3
 GRAPH_LIMITS = {"metrics": 1e-6, "buffers": 5e-5, "params": 1e-3}
 STEPS_MULTIPLIER, STEPS_LOG_FREQ = 8, 8
+# phase 13a: the hard-fixture convergence of siameseunet at the JAX package's
+# settings (8 AOIs x 64 = 512 crops = 64 steps of 8 a epoch, 6 epochs = 384
+# steps, LOG_FREQ 16), and the band written down before its first run: the
+# mean of the last four validation F1s (steps 336-384), the test F1 at step
+# 384, the rise of the validation F1 from step 16 to step 384
+CONVERGENCE_ARGS = ["--regime", "supervised", "--hard", "--scene", "512",
+                    "--signal", "0.3", "--multiplier", "64", "--log-freq", "16",
+                    "--epochs", "6"]
+CONVERGENCE_BAND = {"last4_validation": 0.73, "test": 0.66, "rise": 0.3}
+# phase 13b: lifecycle_run at the smoke shape (39 AOIs x 16 / 8 = 78 steps a
+# epoch, 3 epochs, LOG_FREQ 100: the SIGKILL after the seam window at step
+# 200, the resume from epoch 2 at step 156)
+LIFECYCLE_ARGS = ["--scene", "128", "--multiplier", "16", "--crop", "128",
+                  "--epochs", "3"]
 # BatchNorm calls of a full-width siameseunet step at each of BN_SHAPES (the
 # stem on both dates and Up1, Down1-4 on both dates, Up4..Up2); each is one
 # forward and one backward bn_stats launch
@@ -418,17 +459,26 @@ def phase_device() -> dict:
 # -- phase 2 ------------------------------------------------------------------
 
 def phase_build() -> None:
-    """One nvcc per kernel, all started together."""
+    """One nvcc per kernel and the native GeoTIFF decoders (setuptools and
+    the C compiler), all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     kernels = {"confusion": confusion._kernel, "bn_stats": bn_stats._kernel,
                "conv3x3": conv3x3._kernel}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        for fut in [pool.submit(fn) for fn in kernels.values()]:
+    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+        native = pool.submit(build_native.build)
+        for fut in [pool.submit(fn) for fn in kernels.values()] + [native]:
             fut.result()
     log(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s "
         f"wall, into {_build.BUILD_DIR} (route: nvcc -shared + ctypes)")
+    geotiff._fastcodecs = geotiff.load_native()
+    if geotiff._fastcodecs is None or \
+            geotiff._packbits_decode(bytes([1, 7, 7, 254, 9])) != bytes([7, 7, 9, 9, 9]):
+        raise AssertionError(f"the native GeoTIFF decoders built at {native.result()} "
+                             f"did not load")
+    log(f"native GeoTIFF decoders (LZW, PackBits) built and loaded: "
+        f"{native.result()}")
     for name in kernels:
         info = _build.BUILD_INFO[name]
         log(f"build {name}: {info['seconds']:.2f} s nvcc")
@@ -511,6 +561,10 @@ def phase_kernel(card: dict) -> tuple:
     n_ops = 4 * n_scenes * n_px          # sub, add, rint, compare per px per thr
     bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / flops * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    graphed = graph_time_ms(
+        {"rounding": lambda: confusion.launch(*args, out, False),
+         "strict": lambda: confusion.launch(*args, out, True)},
+        ["rounding", "strict", "strict", "rounding"], inner=20, rounds=13)
     rows = []
     for strict, name, fn, plain in (
             (False, "confusion_counts", confusion.confusion_counts,
@@ -519,6 +573,7 @@ def phase_kernel(card: dict) -> tuple:
              confusion.strict_confusion_counts_plain)):
         kernel_ms = cuda_time_ms(lambda: confusion.launch(*args, out, strict),
                                  runs=25, inner=20)
+        graph_ms = graphed["strict" if strict else "rounding"]
         wrapper_ms = cuda_time_ms(lambda: fn(*args), runs=25)
         plain_ms = cuda_time_ms(lambda: plain(*args), runs=21, warmup=2)
         log(f"{name} kernel at {n_scenes} x {MAIN_SIDE}^2, T=1 on {card['smi']}: "
@@ -527,7 +582,10 @@ def phase_kernel(card: dict) -> tuple:
             f"plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us "
             f"({n_bytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; ops bound "
             f"{ops_ms * 1e3:.2f} us), {bytes_ms / kernel_ms * 100:.1f}% of the "
-            f"memory roofline, {n_bytes / kernel_ms / 1e6:.0f} GB/s achieved")
+            f"memory roofline, {n_bytes / kernel_ms / 1e6:.0f} GB/s achieved; "
+            f"from CUDA graphs {graph_ms * 1e3:.1f} us/launch (20 launches a "
+            f"graph, the rules replayed in turns, median of 13 rounds), "
+            f"{bound_ms / graph_ms * 100:.1f}% of the bound")
         rows.append({"name": name, "route": "cuda",
                      "source": "multimodal_siamese_cd_tpu_torch/ops/csrc/confusion.cu",
                      "replaces": "multimodal_siamese_cd_tpu/ops/confusion.py:27",
@@ -2948,7 +3006,264 @@ def phase_steps(card: dict, rows: dict, dev: torch.device, root: Path,
     return bn_total, conf_total
 
 
+# -- phase 13 -----------------------------------------------------------------
+
+def _convergence_argv(root: Path) -> list:
+    return CONVERGENCE_ARGS + ["--data-dir", str(root / "conv_ds"),
+                               "--out-dir", str(root / "conv_out")]
+
+
+def _lifecycle_argv(root: Path) -> list:
+    return LIFECYCLE_ARGS + ["--data-dir", str(root / "life_ds"),
+                             "--out-dir", str(root / "life_out")]
+
+
+def _join(process) -> None:
+    """Wait for a writer process; raise if it failed."""
+    process.join()
+    if process.exitcode != 0:
+        raise RuntimeError(f"{process.name} failed: exit code {process.exitcode}")
+
+
+def make_datasets(root: str) -> None:
+    """Phase 13's datasets, written by a process of their own while phase 4's
+    split is written: 13a's hard fixture and 13b's lifecycle split, each
+    through its tool's ``ensure_dataset``."""
+    root = Path(root)
+    args = convergence_run.parse_args(_convergence_argv(root))
+    convergence_run.ensure_dataset(convergence_run.paths(args)[0], args.scene,
+                                   hard=args.hard, signal=args.signal, seed=args.seed)
+    args = lifecycle_run.parser().parse_args(_lifecycle_argv(root))
+    lifecycle_run.ensure_dataset(Path(args.data_dir), args.scene, hard=args.hard)
+
+
+def phase_convergence(card: dict, rows: dict, dev: torch.device, root: Path) -> tuple:
+    """13a: ``convergence_run``'s training command for the hard fixture,
+    through ``train_supervised.main`` in this process, its kernel launches
+    counted and held against the plain versions; the trajectory against
+    ``CONVERGENCE_BAND``. Returns (bn_stats, confusion) launches."""
+    args = convergence_run.parse_args(_convergence_argv(root))
+    module, argv, log_path = convergence_run.prepare(args)
+    if module != train_supervised.__name__:
+        raise AssertionError(f"convergence_run runs {module}")
+    log(f"13a convergence: python -m {module} {' '.join(argv)}"[:300])
+    bn_seen, conf_calls, keep_bn, keep_conf = _keepers()
+    printed = io.StringIO()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _watch(batchnorm, "bn_stats", keep_bn), \
+            _watch(evaluation, "confusion_counts", keep_conf):
+        # ---- the convergence run, with the kernels' launch counts around it ----
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed), \
+                mock.patch.dict(os.environ, wandb_compat.SINK_ENV):
+            train_supervised.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bn_launches, conf_launches, _ = _counts()
+        # ----------------------------------------------------------------------
+    for line in printed.getvalue().splitlines()[:8]:
+        log(f"  [train_supervised] {line}")
+    records = [r for r in lifecycle_run.read_jsonl(log_path) if "_event" not in r]
+    cfg = experiment_manager.setup_cfg(
+        parsers.training_argument_parser().parse_known_args(argv)[0])
+    batch = cfg.TRAINER.BATCH_SIZE
+    steps_per_epoch = len(convergence_run.TRAIN) * args.multiplier // batch
+    steps = steps_per_epoch * args.epochs
+    expect = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)
+    log(f"  {steps} steps in {wall:.1f} s wall (evaluations included); launches "
+        f"bn_stats {bn_launches} (expected {expect} a step), confusion "
+        f"{conf_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if bn_launches != expect * steps or conf_launches < 1:
+        raise AssertionError("13a: the run's bn_stats or confusion launches are off")
+    _check_path_launches(rows, dev, bn_seen, conf_calls, path="13a convergence")
+    del bn_seen, conf_calls
+
+    convergence_run.print_trajectory(log_path)
+    sys.stdout.flush()
+    val, test = {}, {}
+    for r in records:
+        if "validation F1" in r:
+            val[r["step"]] = r["validation F1"]
+        if "test F1" in r:
+            test[r["step"]] = r["test F1"]
+    last4 = [val[s] for s in sorted(val)[-4:]]
+    got = {"last4_validation": statistics.mean(last4), "test": test.get(steps, -1.0),
+           "rise": val.get(steps, -1.0) - val.get(args.log_freq, 2.0)}
+    rates = lifecycle_run.window_rates(records, steps_per_epoch, batch)
+    log(f"13a hard-fixture convergence ({cfg.MODEL.TYPE} {list(cfg.MODEL.TOPOLOGY)}, "
+        f"{cfg.TRAINER.get('PRECISION', 'bf16')}, batch {batch}, "
+        f"{cfg.AUGMENTATION.CROP_SIZE}^2 crops, {args.scene}^2 scenes, signal "
+        f"{args.signal}): at step {steps} "
+        f"validation F1 {val.get(steps, float('nan')):.4f}, test F1 "
+        f"{got['test']:.4f}; validation F1 at steps {sorted(val)[-4:]} {last4}, "
+        f"mean {got['last4_validation']:.4f}; from step {args.log_freq} "
+        f"{val.get(args.log_freq, float('nan')):.4f} (rise {got['rise']:.4f}); "
+        f"{wall:.1f} s wall, median train {statistics.median(rates):.2f} patches/s "
+        f"over {len(rates)} windows (host clock, {card['smi']})")
+    missed = {k: v for k, v in got.items() if not v >= CONVERGENCE_BAND[k]}
+    log(f"  the band {CONVERGENCE_BAND}: {'met' if not missed else f'MISSED {missed}'}")
+    if missed:
+        raise AssertionError(f"13a: the convergence run missed the band: {missed}")
+    return bn_launches, conf_launches
+
+
+def watch_child(watch_dir: Path, module: str, argv: list) -> None:
+    """Run the port's CLI ``module`` with ``argv`` in this process (13b's
+    lifecycle_run starts it), its kernel launches watched: after every call
+    the wrappers' launch counts are copied into ``counts.bin``, a file
+    mapped into memory (what is written there survives a SIGKILL), and the
+    inputs and outputs of bn_stats' first launch of each (shape, dtype, a is
+    b) and of every confusion launch are saved for the parent to hold
+    against the plain versions."""
+    watch_dir.mkdir(parents=True, exist_ok=True)
+    counts = np.memmap(watch_dir / "counts.bin", dtype=np.int64, mode="w+", shape=(2,))
+    seen, saved = set(), [0]
+
+    def save(kind, obj):
+        path = watch_dir / f"{kind}_{saved[0]}.pt"
+        saved[0] += 1
+        torch.save(obj, path.with_suffix(".part"))
+        path.with_suffix(".part").replace(path)
+
+    def keep_bn(args, out):
+        counts[0] = bn_stats.bn_stats.launches
+        a, b = args
+        key = (tuple(a.shape), a.dtype, a is b)
+        if key not in seen:
+            seen.add(key)
+            save("bn", (key, a.detach().cpu(), None if a is b else b.detach().cpu(),
+                        tuple(o.detach().cpu() for o in out)))
+
+    def keep_conf(args, out):
+        counts[1] = confusion.confusion_counts.launches
+        save("conf", (tuple(t.detach().cpu() for t in args), out.cpu()))
+
+    with _watch(batchnorm, "bn_stats", keep_bn), \
+            _watch(evaluation, "confusion_counts", keep_conf):
+        importlib.import_module(f"multimodal_siamese_cd_tpu_torch.{module}").main(argv)
+
+
+def _watched(watch_dir: Path) -> tuple:
+    """A child's launch counts and its kept launches, as :func:`_keepers`
+    keeps them: (bn_stats launches, confusion launches, bn_seen,
+    conf_calls)."""
+    bn_launches, conf_launches = np.fromfile(watch_dir / "counts.bin", dtype=np.int64)
+    bn_seen, conf_calls = {}, []
+    for path in sorted(watch_dir.glob("*.pt")):
+        kept = torch.load(path, weights_only=False)
+        if path.name.startswith("bn_"):
+            bn_seen[kept[0]] = kept[1:]
+        else:
+            conf_calls.append(kept)
+    return int(bn_launches), int(conf_launches), bn_seen, conf_calls
+
+
+def phase_lifecycle(card: dict, rows: dict, dev: torch.device, root: Path) -> tuple:
+    """13b: ``lifecycle_run`` at the smoke shape, its CLIs run as child
+    processes of this script (:func:`watch_child`): the SIGKILL of the first
+    training process once the seam window is logged, the resume from
+    ``latest``, the seam check, the assessment CLI; each child's kernel
+    launches counted and held against the plain versions, and the CLI's
+    assessment line against ``assessment_change`` in this process on the
+    same checkpoint. Returns (bn_stats, confusion) launches."""
+    argv = _lifecycle_argv(root)
+    args = lifecycle_run.parser().parse_args(argv)
+    watch = root / "life_watch"
+    children = []
+    here = str(Path(__file__).resolve())
+
+    def cli(module):
+        children.append((module, watch / f"{len(children)}_{module}"))
+        return [sys.executable, here, "--watch-child", str(children[-1][1]), module]
+
+    real_cli = lifecycle_run.cli
+    lifecycle_run.cli = cli
+    printed = io.StringIO()
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = lifecycle_run.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        lifecycle_run.cli = real_cli
+        for line in printed.getvalue().splitlines():
+            if not line.startswith("  step"):
+                log(f"  [lifecycle_run] {line[:300]}")
+    out, data = Path(args.out_dir), Path(args.data_dir)
+    report = json.loads((out / "lifecycle_report.json").read_text())
+    plan = lifecycle_run.plan("supervised", args.multiplier, args.log_freq, args.epochs)
+    cfg = load_cfg("siamese")
+    cfg.merge_from_list(args.extra)
+    per_step = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)
+    if rc != 0 or [m for m, _ in children] != ["train_supervised", "train_supervised",
+                                               "assessment_change"]:
+        raise AssertionError(f"13b: lifecycle_run returned {rc}, children {children}")
+
+    bn_total, conf_total = 0, 0
+    resumed_steps = plan["steps_per_epoch"] * (args.epochs - plan["resume_epoch"])
+    for (module, watch_dir), label in zip(children, ("phase A (killed)", "phase B (resumed)",
+                                                     "assessment_change")):
+        bn_launches, conf_launches, bn_seen, conf_calls = _watched(watch_dir)
+        log(f"  13b {label}: launches bn_stats {bn_launches}, confusion "
+            f"{conf_launches}; kept {len(bn_seen)} bn_stats signatures, "
+            f"{len(conf_calls)} confusion launches")
+        if label.startswith("phase A"):
+            ok = (bn_launches >= per_step * plan["seam_step"] and conf_launches >= 1
+                  and len(conf_calls) >= conf_launches - 1)
+        elif label.startswith("phase B"):
+            ok = (bn_launches == per_step * resumed_steps
+                  and len(conf_calls) == conf_launches >= 1)
+        else:
+            ok = bn_launches == 0 and len(conf_calls) == conf_launches >= 1
+        if not ok:
+            raise AssertionError(f"13b {label}: launches off the schedule")
+        if bn_seen:
+            _check_path_launches(rows, dev, bn_seen, conf_calls, path=f"13b {label}")
+        else:
+            _check_conf_launches(rows, dev, conf_calls, f"13b {label}")
+        bn_total, conf_total = bn_total + bn_launches, conf_total + conf_launches
+        del bn_seen, conf_calls
+
+    # the CLI's printed line == assessment_change in this process
+    _, conf_calls, _, keep_conf = _keepers()
+    with _watch(evaluation, "confusion_counts", keep_conf):
+        _reset_counts()
+        text, _, seconds = _run_cli(
+            "assessment_change in process", assessment_change.main,
+            lifecycle_run.assessment_argv(args, "siamese", out, data))
+        torch.cuda.synchronize()
+        conf_launches = _counts()[1]
+    _check_conf_launches(rows, dev, conf_calls, "13b assessment in process")
+    conf_total += conf_launches
+    cli_line, here_line = report["assessment_tail"][-1], text.strip().splitlines()[-1]
+    log(f"13b lifecycle_run ({args.scene}^2, {report['shape']['aois']} AOIs, "
+        f"{plan['steps_per_epoch']} steps/epoch x {args.epochs}, LOG_FREQ "
+        f"{args.log_freq}): SIGKILLed after step {report['killed_after_step']}, "
+        f"resumed from epoch {report['resume_epoch']}, seam step {report['seam_step']} "
+        f"max |A - B| {report['seam_max_abs_diff']} (limit {lifecycle_run.SEAM_LIMIT}); "
+        f"assessment CLI '{cli_line}', in process '{here_line}' ({seconds:.1f} s); "
+        f"median train {report['median_train_patches_per_sec']} patches/s over "
+        f"{len(report['window_rates'])} windows; {wall:.1f} s wall "
+        f"({card['smi']})")
+    if (report["seam_max_abs_diff"] is None
+            or report["seam_max_abs_diff"] > lifecycle_run.SEAM_LIMIT
+            or cli_line != here_line or not cli_line.startswith("F1 score: ")):
+        raise AssertionError("13b: the seam shows, or the assessment CLI's line "
+                             "differs from the in-process one")
+    return bn_total, conf_total
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--watch-child"]:
+        watch_child(Path(sys.argv[2]), sys.argv[3], sys.argv[4:])
+        return
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
@@ -2958,9 +3273,20 @@ def main() -> None:
     rows["conv3x3"] = phase_conv3x3(card)
     dev = torch.device("cuda")
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    maker = None
     try:
-        root = Path(tmp.name)
+        root, root13 = Path(tmp.name) / "split", Path(tmp.name) / "phase13"
+        root13.mkdir()
+        # phase 13's datasets, written by a process of their own beside the
+        # split: after phase 3's host-timed measurements, before phase 4's
+        maker = multiprocessing.get_context("spawn").Process(
+            target=make_datasets, args=(str(root13),), name="phase 13's datasets")
+        maker.start()
         aois = write_split(root)
+        t4 = time.perf_counter()
+        _join(maker)
+        log(f"phase 13: its datasets ready {time.perf_counter() - t4:.1f} s "
+            f"after the split")
         phase_main_path(card, rows["confusion_counts"], dev, root, aois)
         phase_train(card, rows, dev, root, aois)
         phase_dualtask(card, rows, dev, root, aois)
@@ -2989,7 +3315,17 @@ def main() -> None:
         bn_launches, conf_launches = phase_steps(card, rows, dev, root, aois)
         rows["bn_stats"]["launches"] += bn_launches
         rows["confusion_counts"]["launches"] += conf_launches
+        t13 = time.perf_counter()
+        for phase in (phase_convergence, phase_lifecycle):
+            bn_launches, conf_launches = phase(card, rows, dev, root13)
+            rows["bn_stats"]["launches"] += bn_launches
+            rows["confusion_counts"]["launches"] += conf_launches
+            log(f"phase {phase.__name__}: {time.perf_counter() - t13:.1f} s into phase 13")
+        log(f"phase 13: {time.perf_counter() - t13:.1f} s wall, checks included")
     finally:
+        if maker is not None and maker.is_alive():
+            maker.terminate()
+            maker.join()
         tmp.cleanup()
     log(f"kernels: {json.dumps(list(rows))}; chip_smoke wall "
         f"{time.perf_counter() - t_start:.1f} s (builds included) on {card['smi']}")

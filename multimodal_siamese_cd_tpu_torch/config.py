@@ -164,6 +164,9 @@ class CfgNode(dict):
             out[k] = _plain(v)
         return out
 
+    def dump(self, **kwargs) -> str:
+        return yaml.safe_dump(self.to_dict(), sort_keys=True, **kwargs)
+
     def __reduce__(self):
         # pickle / deepcopy (clone) rebuild the node from plain dicts
         return (CfgNode, (self.to_dict(),))

@@ -38,7 +38,9 @@ SpaceNet7/Sentinel tiles live in, and REJECTS the rest loudly):
 
 from __future__ import annotations
 
+import importlib.util
 import struct
+import sysconfig
 import zlib
 from dataclasses import dataclass
 from pathlib import Path
@@ -151,10 +153,41 @@ class CRS:
 
 
 # --- Compression codecs -----------------------------------------------------
-# Pure-Python decoders only: the package has no native codec build.
+# Optional native decoders (``python -m multimodal_siamese_cd_tpu_torch.
+# build_native`` compiles native/fastcodecs.c into NATIVE_DIR); the
+# pure-Python decoders below keep everything working without a compiler.
+NATIVE_DIR = Path(__file__).resolve().parent.parent / "build" / "native"
+
+
+def native_path(directory: Path | None = None) -> Path:
+    """Where the native decoders' extension is built: ``_fastcodecs`` with
+    this interpreter's extension suffix, in ``directory`` (default
+    :data:`NATIVE_DIR`)."""
+    suffix = sysconfig.get_config_var("EXT_SUFFIX")
+    return Path(directory or NATIVE_DIR) / f"_fastcodecs{suffix}"
+
+
+def load_native(directory: Path | None = None):
+    """The native decoders' module built in ``directory`` (default
+    :data:`NATIVE_DIR`), or None when it is not there or does not load."""
+    path = native_path(directory)
+    if not path.exists():
+        return None
+    spec = importlib.util.spec_from_file_location("_fastcodecs", path)
+    module = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(module)
+    except ImportError:
+        return None
+    return module
+
+
+_fastcodecs = load_native()
 
 
 def _packbits_decode(data: bytes, limit: int = 0) -> bytes:
+    if _fastcodecs is not None:
+        return _fastcodecs.packbits_decode(data, limit)
     return _packbits_decode_py(data, limit)
 
 
@@ -178,6 +211,8 @@ def _packbits_decode_py(data: bytes, limit: int = 0) -> bytes:
 
 
 def _lzw_decode(data: bytes, limit: int = 0) -> bytes:
+    if _fastcodecs is not None:
+        return _fastcodecs.lzw_decode(data, limit)
     return _lzw_decode_py(data, limit)
 
 

@@ -73,6 +73,13 @@ def create_network(cfg, device=None, generator: torch.Generator | None = None):
     return model.to(device)
 
 
+def param_count(model: torch.nn.Module) -> int:
+    """Trainable parameter count (the JAX package's ``param_count`` of
+    ``variables['params']``): BatchNorm running statistics are buffers, left
+    out as flax leaves out ``batch_stats``."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)
+
+
 def remat_applies(cfg) -> bool:
     """``MODEL.REMAT`` is set and the model type takes it."""
     return bool(cfg.MODEL.get("REMAT", False)) and cfg.MODEL.TYPE != "siamunet_diff"

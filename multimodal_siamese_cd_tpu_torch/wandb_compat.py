@@ -6,7 +6,10 @@ evaluation.py:36-41). This facade keeps that call surface (``init`` /
 
   * the real ``wandb`` package when it is importable and mode != disabled,
   * otherwise a JSONL sink at ``{OUTPUT}/logs/{name}.jsonl`` plus stdout —
-    so headless runs are observable without external services.
+    so headless runs are observable without external services. The
+    environment variable ``MSCD_LOG_SINK=jsonl`` (:data:`SINK_ENV`) picks
+    the JSONL sink even where wandb is installed: the lifecycle tools set
+    it for the CLIs they run, whose logs they read.
 
 Metric names are kept identical to the reference so dashboards/parsers
 transfer ('loss', '{run_type} F1/precision/recall', 'labeled_percentage',
@@ -16,6 +19,7 @@ transfer ('loss', '{run_type} F1/precision/recall', 'labeled_percentage',
 from __future__ import annotations
 
 import json
+import os
 import time
 from pathlib import Path
 
@@ -25,6 +29,7 @@ except ImportError:
     _wandb = None
 
 _run = None
+SINK_ENV = {"MSCD_LOG_SINK": "jsonl"}
 
 
 def _jsonable(v):
@@ -91,6 +96,8 @@ def init(name: str, config=None, entity: str = None, project: str = None,
         # leaked handle can interleave into the old JSONL)
         finish()
     cfg_dict = config.to_dict() if hasattr(config, "to_dict") else config
+    if SINK_ENV.items() <= os.environ.items() and mode != "disabled":
+        mode = "jsonl"
     if _wandb is not None and mode != "jsonl":
         _run = _wandb.init(name=name, config=cfg_dict, entity=entity,
                            project=project, tags=tags, mode=mode)

@@ -40,6 +40,8 @@ PORT_MODULES = [
     "parallel.distributed", "parallel.group", "parallel.cluster_check",
     # slice 9: height sharding over a (data, space) grid of ranks
     "parallel.halo",
+    # slice 11: the training lifecycle tools and the native GeoTIFF decode
+    "convergence_run", "lifecycle_run", "build_native",
 ]
 
 
