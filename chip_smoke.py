@@ -186,6 +186,26 @@ script exits non-zero:
      the seam window is logged, the resume from ``latest``, every seam
      record within 1e-6, and the assessment CLI's line equal to
      ``assessment_change`` in this process on the same checkpoint.
+14. the measurement modules through their ``main`` in this process, each
+     printing its own lines (the module's defaults unless said), their
+     kernels' launches counted and held against the plain versions:
+     a. ``bench`` (three regimes, K 20 steps a call as CUDA graphs, 2 + 5
+     calls, one more call under the sync debug mode listing the step's
+     synchronising calls), then the supervised regime at k = 1; bn_stats'
+     launches exactly (K + 1) x 56 / 88 / 112 (the first call's eager
+     steps and the capture) and 56 a k = 1 step;
+     b. ``bench_eval --sol`` (16 x 1024^2, 8 calls; the convolution FLOPs
+     and the share of the dense bf16 peak);
+     c. ``bench_assessment`` on phase 4's split (``--data-dir``): its F1
+     equal to ``inference_loop``'s on the same weights, the warm-up pass's
+     confusion launches held against the plain version;
+     d. ``profile_step`` of the supervised regime: device time by category
+     and busy share of replayed and eager steps, each trace's bn_stats
+     kernels counted;
+     e. ``ablate_step`` at batch 8 and ``bench_remat_memory`` (1024^2,
+     batch 8: plain, REMAT, GRAD_ACCUM 4, both), the latter's 1024^2
+     bn_stats signatures held against plain from one more staged step of
+     plain and of GRAD_ACCUM, outside its measured run.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Imports only the port,
@@ -194,6 +214,7 @@ torch, numpy and the standard library.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import hashlib
@@ -209,6 +230,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -216,16 +238,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multimodal_siamese_cd_tpu_torch import (assessment_change, assessment_semantics,
-                                             build_native, checkpoints,
-                                             convergence_run, evaluation,
+from multimodal_siamese_cd_tpu_torch import (ablate_step, assessment_change,
+                                             assessment_semantics, bench,
+                                             bench_assessment, bench_eval,
+                                             bench_remat_memory, build_native,
+                                             checkpoints, convergence_run, evaluation,
                                              experiment_manager, export_serving,
                                              geofiles, geotiff, lifecycle_run,
                                              metrics, parallel, parsers, png,
-                                             preprocessing, qualitative_comparison,
-                                             sanity_check, serving, train_lib,
-                                             train_supervised, trainers, wandb_compat)
+                                             preprocessing, profile_step,
+                                             qualitative_comparison, sanity_check,
+                                             serving, train_lib, train_supervised,
+                                             trainers, wandb_compat)
 from multimodal_siamese_cd_tpu_torch.config import load_cfg
+from multimodal_siamese_cd_tpu_torch.data import synthetic
 from multimodal_siamese_cd_tpu_torch.data.dataset import MultimodalCDDataset
 from multimodal_siamese_cd_tpu_torch.data.loader import (TrainLoader, group_batches,
                                                           prefetch_to_device)
@@ -327,6 +353,20 @@ CONVERGENCE_BAND = {"last4_validation": 0.73, "test": 0.66, "rise": 0.3}
 # 200, the resume from epoch 2 at step 156)
 LIFECYCLE_ARGS = ["--scene", "128", "--multiplier", "16", "--crop", "128",
                   "--epochs", "3"]
+# phase 14: the measurement modules' argv (each runs at the module's defaults
+# on the card; 14a's bench adds one call under the sync debug mode after its
+# timed ones), the topology their expected launch counts assume, and the
+# bench's BatchNorm calls a step by regime (bn_per_step's keywords)
+BENCH_ARGV = ["--sync-debug"]
+BENCH_K1_ARGV = ["--regime", "supervised", "--steps-per-call", "1", "--sync-debug"]
+BENCH_EVAL_ARGV = ["--sol"]
+ASSESS_ARGV: list = []
+PROFILE_ARGV = ["8", "--regime", "supervised", "--top", "12"]
+ABLATE_ARGV = ["--batch-sizes", "8"]
+REMAT_ARGV: list = []
+PHASE14_TOPOLOGY = [64, 128, 256, 512]
+BENCH_BN_CALLS = {"supervised": {}, "dualtask": {"decoder_calls": 3},
+                  "semisupervised": {"streams": 2}}
 # BatchNorm calls of a full-width siameseunet step at each of BN_SHAPES (the
 # stem on both dates and Up1, Down1-4 on both dates, Up4..Up2); each is one
 # forward and one backward bn_stats launch
@@ -392,38 +432,30 @@ def graph_time_ms(fns: dict, order: list, inner: int, rounds: int) -> dict:
 
 
 def profile_breakdown(label: str, fn, top: int = 8, match: str = "") -> dict | None:
-    """One profiled call of ``fn``: the device's busy share of the host
-    wall time and the kernels that take the most device time (and the
-    total of those whose name holds ``match``). Returns the wall and busy
+    """One profiled call of ``fn`` (``profile_step.trace``: the profiler's
+    user annotations left out): the device's busy share of the host wall
+    time and the kernels that take the most device time (and the total of
+    those whose name holds ``match``). Returns the wall and busy
     microseconds and the launches of the ``match`` kernels, or None when the
     profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    traced = profile_step.trace(fn, torch.device("cuda"))
+    kernels, wall_us = traced["kernels"], traced["wall_us"]
+    busy_us = sum(us for us, _ in kernels.values())
     if busy_us <= 0:
         log(f"profile {label}: the profiler saw no device time (not measured)")
         return None
     log(f"profile {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us * 100:.1f}%), idle "
         f"{max(0.0, 1 - busy_us / wall_us) * 100:.1f}%")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"  {e.self_device_time_total / busy_us * 100:5.1f}% "
-            f"{e.self_device_time_total / 1e3:8.2f} ms x{e.count:<4d} {e.key[:90]}")
-    hits = [e for e in kernels if match and match in e.key]
+    for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"  {us / busy_us * 100:5.1f}% {us / 1e3:8.2f} ms x{n:<4d} {name[:90]}")
+    hits = [v for name, v in kernels.items() if match and match in name]
     if match:
-        us = sum(e.self_device_time_total for e in hits)
+        us = sum(t for t, _ in hits)
         log(f"  kernels named *{match}*: {us / busy_us * 100:.1f}% of device "
-            f"time, {us / 1e3:.2f} ms in {sum(e.count for e in hits)} launches")
+            f"time, {us / 1e3:.2f} ms in {sum(n for _, n in hits)} launches")
     return {"wall_us": wall_us, "busy_us": busy_us,
-            "matched": sum(e.count for e in hits)}
+            "matched": sum(n for _, n in hits)}
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -884,14 +916,35 @@ def write_split(root: Path) -> list:
     ones."""
     aois = [f"smoke_aoi_{i}" for i in range(N_AOIS)]
     t0 = time.perf_counter()
-    generate_fixture_dataset(root, seed=11, scene_size=(AOI_SIDE, AOI_SIDE),
-                             n_timestamps=3,
-                             aois={**{a: True for a in aois},
-                                   **{a: False for a in UNLABELED_AOIS}})
+    with _threaded_tif_writes():
+        generate_fixture_dataset(root, seed=11, scene_size=(AOI_SIDE, AOI_SIDE),
+                                 n_timestamps=3,
+                                 aois={**{a: True for a in aois},
+                                       **{a: False for a in UNLABELED_AOIS}})
     log(f"synthetic split: {N_AOIS} labeled and {len(UNLABELED_AOIS)} unlabeled "
         f"AOIs, 3 timestamps, sides {AOI_SIDE}..{AOI_SIDE + 16} px, written in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s ({os.cpu_count()} writer threads)")
     return aois
+
+
+@contextlib.contextmanager
+def _threaded_tif_writes():
+    """A dataset generator's draws in their order, its GeoTIFFs written by a
+    pool of threads (the deflate of each strip, nine tenths of the time,
+    releases the GIL; the files are byte for byte the same); every write
+    has finished when the block ends."""
+    write_tif = geofiles.write_tif
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        writes = []
+
+        def write_later(file, arr, transform, crs):
+            Path(file).parent.mkdir(parents=True, exist_ok=True)
+            writes.append(pool.submit(write_tif, file, arr, transform, crs))
+
+        with mock.patch.object(geofiles, "write_tif", write_later):
+            yield
+        for w in writes:
+            w.result()
 
 
 def _randomize_bn(model, gen: torch.Generator) -> None:
@@ -1474,7 +1527,10 @@ def _keepers() -> tuple:
     def keep_bn(args, out):
         a, b = args
         key = (tuple(a.shape), a.dtype, a is b)
-        if key not in bn_seen:
+        # a copy to the host would end a CUDA graph's capture; its first
+        # launch of a signature came in the eager steps before it
+        if key not in bn_seen and not (a.is_cuda
+                                       and torch.cuda.is_current_stream_capturing()):
             bn_seen[key] = (a.detach().cpu(),
                             None if a is b else b.detach().cpu(),
                             tuple(o.detach().cpu() for o in out))
@@ -3030,11 +3086,25 @@ def make_datasets(root: str) -> None:
     split is written: 13a's hard fixture and 13b's lifecycle split, each
     through its tool's ``ensure_dataset``."""
     root = Path(root)
-    args = convergence_run.parse_args(_convergence_argv(root))
-    convergence_run.ensure_dataset(convergence_run.paths(args)[0], args.scene,
-                                   hard=args.hard, signal=args.signal, seed=args.seed)
-    args = lifecycle_run.parser().parse_args(_lifecycle_argv(root))
-    lifecycle_run.ensure_dataset(Path(args.data_dir), args.scene, hard=args.hard)
+
+    def threaded(generate):
+        def run(*args, **kw):
+            with _threaded_tif_writes():
+                return generate(*args, **kw)
+        return run
+
+    # the tools import the generators when they write, and rename or mark
+    # the tree after the generator returns, every file written by then
+    with mock.patch.object(synthetic, "generate_fixture_dataset",
+                           threaded(synthetic.generate_fixture_dataset)), \
+            mock.patch.object(synthetic, "generate_hard_dataset",
+                              threaded(synthetic.generate_hard_dataset)):
+        args = convergence_run.parse_args(_convergence_argv(root))
+        convergence_run.ensure_dataset(convergence_run.paths(args)[0], args.scene,
+                                       hard=args.hard, signal=args.signal,
+                                       seed=args.seed)
+        args = lifecycle_run.parser().parse_args(_lifecycle_argv(root))
+        lifecycle_run.ensure_dataset(Path(args.data_dir), args.scene, hard=args.hard)
 
 
 def phase_convergence(card: dict, rows: dict, dev: torch.device, root: Path) -> tuple:
@@ -3260,6 +3330,249 @@ def phase_lifecycle(card: dict, rows: dict, dev: torch.device, root: Path) -> tu
     return bn_total, conf_total
 
 
+# -- phase 14 -----------------------------------------------------------------
+
+def _drive(label: str, main, argv: list) -> list:
+    """``main(argv)`` of a measurement module in this process, its output
+    printed here as it printed it; returns its JSON lines. A module that
+    exits non-zero fails the phase."""
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = main(argv)
+    sys.stdout.write(printed.getvalue())
+    log(f"  {label}: {time.perf_counter() - t0:.1f} s wall, argv {argv}")
+    if rc != 0:
+        raise AssertionError(f"{label} exited {rc}")
+    return [json.loads(line) for line in printed.getvalue().splitlines()
+            if line.startswith("{")]
+
+
+def _counted(label: str, main, argv: list, keep_bn=None, keep_conf=None) -> tuple:
+    """:func:`_drive` with the kernels' launch counts around it (bn_stats'
+    and the confusion kernel's calls routed through the keepers where
+    given). Returns (JSON lines, bn_stats launches, confusion launches)."""
+    with contextlib.ExitStack() as stack:
+        if keep_bn is not None:
+            stack.enter_context(_watch(batchnorm, "bn_stats", keep_bn))
+        if keep_conf is not None:
+            stack.enter_context(_watch(evaluation, "confusion_counts", keep_conf))
+        # ---- the module's run, with the kernels' launch counts around it ----
+        torch.cuda.synchronize()
+        _reset_counts()
+        lines = _drive(label, main, argv)
+        torch.cuda.synchronize()
+        bn_launches, conf_launches, _ = _counts()
+        # ---------------------------------------------------------------------
+    return lines, bn_launches, conf_launches
+
+
+def _gib(value, per_gib: float) -> str:
+    """A memory figure of a module's line in GiB (``per_gib`` units a GiB),
+    or what the line says instead (``"not measured"``)."""
+    return f"{value / per_gib:.2f} GiB" if isinstance(value, float) else str(value)
+
+
+def _bench_line(card: dict, line: dict, label: str) -> None:
+    """Log and check a bench line: its keys, every regime's rate finite and
+    above 0, and the card it names."""
+    regimes = line["per_regime"]
+    for regime, r in regimes.items():
+        syncs = r.get("syncs", {})
+        log(f"  14a {label} {regime}: {r['value']:.2f} patches/s, {r['step_ms']:.3f} "
+            f"ms a step ({r['mode']}), loss {r['loss']:.5f}; synchronising calls "
+            f"in one more call: {sum(syncs.values()) if isinstance(syncs, dict) else syncs} "
+            f"at {sorted(syncs) if isinstance(syncs, dict) else '-'} ({card['smi']})")
+    if (line["metric"] != bench.METRIC or set(line["regimes"]) != set(regimes)
+            or not all(np.isfinite(r["loss"]) and r["value"] > 0
+                       for r in regimes.values())
+            or line["device"]["name"] != torch.cuda.get_device_name(0)):
+        raise AssertionError(f"14a {label}: the bench's line is off: {line}")
+
+
+def phase_measure(card: dict, rows: dict, dev: torch.device, root: Path,
+                  aois: list) -> tuple:
+    """Phase 14: the measurement modules through their ``main`` on the card,
+    their kernels' launches counted and held against the plain versions.
+    Returns (bn_stats, confusion) launches of its paths."""
+    t0 = time.perf_counter()
+    per_step = {r: 2 * bn_per_step(PHASE14_TOPOLOGY, **kw)
+                for r, kw in BENCH_BN_CALLS.items()}
+    args = bench.parse_args(BENCH_ARGV)
+    k = args.steps_per_call
+    bn_total = 0
+
+    # 14a: the bench at its defaults, then the supervised regime at k = 1
+    bn_seen, _, keep_bn, _ = _keepers()
+    (line,), bn_graph, _ = _counted("14a bench", bench.main, BENCH_ARGV, keep_bn)
+    _bench_line(card, line, "graph")
+    regimes = list(line["per_regime"])
+    graph = all(r["mode"] == "graph" for r in line["per_regime"].values())
+    expect = sum((k + 1) * per_step[r] for r in regimes)
+    replays = (max(1, args.warmup_calls) - 1 + args.calls + args.sync_debug) * k
+    log(f"  14a bn_stats launches the wrapper counted {bn_graph} (expected {expect}: "
+        f"each regime's first call, {k} eager steps and the capture); the later "
+        f"calls replayed {sum(replays * per_step[r] for r in regimes)} more from "
+        f"the graphs ({replays} steps a regime; 14d counts a replayed window's "
+        f"in a trace)")
+    if not graph or bn_graph != expect:
+        raise AssertionError("14a: the bench's windows did not run as CUDA graphs, "
+                             "or its bn_stats launches are off")
+    (line1,), bn_eager, _ = _counted("14a bench k = 1", bench.main, BENCH_K1_ARGV,
+                                      keep_bn)
+    _bench_line(card, line1, "k = 1")
+    a1 = bench.parse_args(BENCH_K1_ARGV)
+    # the sync debug mode's call runs on the card alone
+    synced = a1.sync_debug and dev.type == "cuda"
+    expect = (max(1, a1.warmup_calls) + a1.calls + synced) * per_step["supervised"]
+    if line1["per_regime"]["supervised"]["mode"] != "eager" or bn_eager != expect:
+        raise AssertionError(f"14a k = 1: {bn_eager} bn_stats launches, expected "
+                             f"{expect}")
+    _check_bn_launches(rows, dev, bn_seen, "14a bench")
+    bn_total += bn_graph + bn_eager
+    del bn_seen
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+
+    # 14b: the eval forward at 16 x 1024^2 with its FLOP count
+    (line,) = _drive("14b bench_eval", bench_eval.main, BENCH_EVAL_ARGV)
+    log(f"  14b bench_eval: {line['value']:.2f} scenes/s at {line['group']} x "
+        f"{line['scene']}^2, {line['ms_per_scene']:.2f} ms a scene, peak "
+        f"{_gib(line['peak_gib'], 1)}; {line.get('effective_tflops', float('nan')):.1f} "
+        f"effective TFLOP/s, {line.get('bf16_peak_share', float('nan')) * 100:.1f}% of "
+        f"the dense bf16 peak ({card['smi']})")
+    if not line["value"] > 0 or line["device"]["name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"14b: the line is off: {line}")
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+
+    # 14c: end to end over phase 4's split; the warm-up pass's confusion
+    # launches kept (the timed pass's repeat them on the same inputs, and a
+    # copy to the host inside it would be timed): a launch a group of the
+    # split's padded shapes (write_split's sides)
+    pad = lambda side: -(-side // evaluation.EVAL_BUCKET) * evaluation.EVAL_BUCKET  # noqa: E731
+    shapes = collections.Counter((pad(AOI_SIDE + 8 * (i % 3)), pad(AOI_SIDE + 8 * (i % 2)))
+                                 for i in range(N_AOIS))
+    groups = sum(-(-n // evaluation.eval_group_limit(shape)) for shape, n in shapes.items())
+    conf_calls = []
+
+    def keep_warm_pass(args_, out):
+        if len(conf_calls) < groups:
+            conf_calls.append((tuple(t.detach().cpu() for t in args_), out.cpu()))
+
+    (line,), _, conf = _counted("14c bench_assessment", bench_assessment.main,
+                                ["--data-dir", str(root)] + ASSESS_ARGV,
+                                keep_conf=keep_warm_pass)
+    _check_conf_launches(rows, dev, conf_calls, "14c bench_assessment")
+    cfg = bench_assessment.assessment_cfg(root, aois)
+    cfg.merge_from_list(bench_assessment.parser().parse_args(ASSESS_ARGV).opts)
+    model = create_network(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(bench.SEED))
+    f1 = evaluation.inference_loop(model, bench_assessment.assessment_dataset(cfg),
+                                   device=dev)["change"][0]
+    log(f"  14c bench_assessment: {line['value']:.2f} scenes/s end to end over "
+        f"{line['n_scenes']} scenes of {line['scene_class']}^2, host alone "
+        f"{line['host_only_scenes_per_sec']:.2f} scenes/s, {line['e2e_wall_s']:.3f} s; "
+        f"F1 {line['f1']:.6f} against inference_loop's {f1:.6f} on the same weights "
+        f"(|dF1| {abs(line['f1'] - f1):.2e}); confusion launches {conf} "
+        f"({card['smi']})")
+    if (line["n_scenes"] != len(aois) or conf != 2 * groups
+            or abs(line["f1"] - f1) > 1e-6
+            or line["device"]["name"] != torch.cuda.get_device_name(0)):
+        raise AssertionError(f"14c: the line is off inference_loop's: {line}")
+    del model
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+
+    # 14d: the step profile of the supervised regime
+    bn_seen, _, keep_bn, _ = _keepers()
+    (line,), bn_prof, _ = _counted("14d profile_step", profile_step.main,
+                                   PROFILE_ARGV, keep_bn)
+    _check_bn_launches(rows, dev, bn_seen, "14d profile_step")
+    steps = line["windows"] * line["k"]
+    cats = {key: line[key]["launches"].get("bn_stats", 0) for key in ("graph", "eager")}
+    for key in ("graph", "eager"):
+        s_ = line[key]
+        share = ("not measured" if s_["busy_share"] is None
+                 else f"{s_['busy_share'] * 100:.1f}% busy")
+        log(f"  14d {key}: {s_['device_ms_per_step']:.3f} device ms a step, "
+            f"{s_['wall_ms_per_step']:.3f} host ms, {share}; "
+            + ", ".join(f"{c} {v:.3f} ms ({v / s_['device_ms_per_step'] * 100:.1f}%)"
+                        for c, v in s_["categories_ms_per_step"].items())
+            + f" ({card['smi']})")
+    expect = (line["k"] + 1 + 1 + steps) * per_step["supervised"]
+    # each bn_stats launch is two kernels, the partial sums and their finalize
+    want = 2 * steps * per_step["supervised"]
+    log(f"  14d bn_stats kernels in the traces: graph {cats['graph']}, eager "
+        f"{cats['eager']} (expected {want} each); the wrapper counted {bn_prof} "
+        f"(expected {expect}: the graph's first window and capture, the eager warm "
+        f"step and steps)")
+    if line["graph"]["mode"] != "graph" or bn_prof != expect or any(
+            v != want for v in cats.values()):
+        raise AssertionError("14d: the profile's bn_stats launches are off")
+    bn_total += bn_prof + cats["graph"] // 2
+    del bn_seen
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+
+    # 14e: the segmented step, then the memory table at 1024^2
+    bn_seen, _, keep_bn, _ = _keepers()
+    lines, bn_ablate, _ = _counted("14e ablate_step", ablate_step.main, ABLATE_ARGV,
+                                   keep_bn)
+    aargs = ablate_step.parser().parse_args(ABLATE_ARGV)
+    one = per_step["supervised"]
+    expect = len(lines) * (5 * aargs.k * one // 2 + 5 * aargs.k * one
+                           + (aargs.k + 1) * one)
+    for line in lines:
+        log(f"  14e ablate_step batch {line['batch']}: "
+            + ", ".join(f"{key} {v:.2f}" for key, v in line["ms_per_step"].items())
+            + f" ms a step, {line['patches_per_sec']:.1f} patches/s (segments "
+              f"{line['modes']['segments']}, full {line['modes']['full']}) "
+              f"({card['smi']})")
+    log(f"  14e ablate_step bn_stats launches {bn_ablate} (expected {expect})")
+    if bn_ablate != expect or any(line["modes"]["full"] != "graph" for line in lines):
+        raise AssertionError("14e: ablate_step's launches or modes are off")
+    _check_bn_launches(rows, dev, bn_seen, "14e ablate_step")
+    del bn_seen
+    lines, bn_remat, _ = _counted("14e bench_remat_memory", bench_remat_memory.main,
+                                  REMAT_ARGV)
+    rargs = bench_remat_memory.parser().parse_args(REMAT_ARGV)
+    accum = rargs.grad_accum
+    remat = 3 * one // 2          # REMAT runs every forward BatchNorm twice
+    expect = one + remat + accum * one + accum * remat
+    for rec in lines[:-1]:
+        log(f"  14e bench_remat_memory {rec['label']} at {rec['crop']}^2 batch "
+            f"{rec['batch']}: "
+            + (f"OOM ({rec['error']})" if rec.get("oom") else
+               f"{_gib(rec['max_allocated_mib'], 1024)} allocated, "
+               f"{_gib(rec['max_reserved_mib'], 1024)} reserved, "
+               f"{rec['step_ms']:.1f} ms") + f" ({card['smi']})")
+    log(f"  14e bench_remat_memory summary {lines[-1]}; bn_stats launches "
+        f"{bn_remat} (expected {expect} with no mode out of memory)")
+    if any(rec.get("oom") for rec in lines[:-1]) or bn_remat != expect:
+        raise AssertionError("14e: a memory mode failed or its launches are off")
+    # its launches at 1024^2 held against plain from one more staged step of
+    # plain and of GRAD_ACCUM (REMAT's signatures are theirs), outside the
+    # measured run: a copy to the host inside it would be in its step times
+    bn_seen, _, keep_bn, _ = _keepers()
+    with _watch(batchnorm, "bn_stats", keep_bn), \
+            contextlib.redirect_stdout(io.StringIO()):
+        _reset_counts()
+        for label, extra in (("plain", []), ("grad_accum", ["TRAINER.GRAD_ACCUM",
+                                                           str(accum)])):
+            bench_remat_memory.analyze(label, rargs.opts + extra, rargs.crop,
+                                       rargs.batch, rargs.regime, dev)
+        bn_check = _counts()[0]
+    _check_bn_launches(rows, dev, bn_seen, "14e bench_remat_memory")
+    bn_total += bn_ablate + bn_remat + bn_check
+    del bn_seen
+    torch.cuda.empty_cache()
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s wall, checks included (14a "
+        f"{t1 - t0:.1f} s, 14b {t2 - t1:.1f} s, 14c {t3 - t2:.1f} s, 14d "
+        f"{t4 - t3:.1f} s, 14e {time.perf_counter() - t4:.1f} s)")
+    return bn_total, conf
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--watch-child"]:
         watch_child(Path(sys.argv[2]), sys.argv[3], sys.argv[4:])
@@ -3322,6 +3635,9 @@ def main() -> None:
             rows["confusion_counts"]["launches"] += conf_launches
             log(f"phase {phase.__name__}: {time.perf_counter() - t13:.1f} s into phase 13")
         log(f"phase 13: {time.perf_counter() - t13:.1f} s wall, checks included")
+        bn_launches, conf_launches = phase_measure(card, rows, dev, root, aois)
+        rows["bn_stats"]["launches"] += bn_launches
+        rows["confusion_counts"]["launches"] += conf_launches
     finally:
         if maker is not None and maker.is_alive():
             maker.terminate()

@@ -9,6 +9,8 @@ run on the CPU: a caller who wants the CPU (the tests) asks for it with
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 from .parallel.distributed import local_device
@@ -26,3 +28,24 @@ def resolve_device(device=None) -> torch.device:
             "device='cpu' explicitly to run on the CPU")
     local = local_device()
     return torch.device("cuda") if local is None else local
+
+
+def describe(device: torch.device) -> dict:
+    """What a measurement ran on, for its printed line: on the card its name
+    (``torch.cuda.get_device_name``), the device count and the power limit
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` reports
+    for it (``"not measured"`` where nvidia-smi cannot say); elsewhere the
+    platform alone, so no CPU number reads as a card's."""
+    if device.type != "cuda":
+        return {"platform": device.type, "name": device.type, "count": 0,
+                "power_limit": "not measured"}
+    index = torch.cuda.current_device() if device.index is None else device.index
+    try:
+        rows = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()
+        limit = rows[index].rsplit(",", 1)[1].strip()
+    except (OSError, subprocess.SubprocessError, IndexError):
+        limit = "not measured"
+    return {"platform": "gpu", "name": torch.cuda.get_device_name(index),
+            "count": torch.cuda.device_count(), "power_limit": limit}

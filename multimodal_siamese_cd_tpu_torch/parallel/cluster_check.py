@@ -454,10 +454,13 @@ _CASES = {"step": _step_case, "measurer": _measurer_case,
           "halo": _halo_case}
 
 
-def run_case(case: dict, device="cpu") -> dict:
-    """Run one case of a job on ``device``: in a worker, as this rank; in a
-    process without a process group, as the one-process reference."""
-    return _CASES[case["kind"]](case, device)
+def run_case(case: dict, device=None) -> dict:
+    """Run one case of a job on ``device`` (default: the card, as
+    :func:`..device.resolve_device` gives it): in a worker, as this rank; in
+    a process without a process group, as the one-process reference."""
+    from ..device import resolve_device
+
+    return _CASES[case["kind"]](case, resolve_device(device))
 
 
 def launch_cluster(job: dict, out_dir, world: int = 2, timeout: float = 600):

@@ -129,7 +129,7 @@ class ProfilerHook:
     def close(self) -> None:
         if self._prof is None:
             return
-        _sync(self.device)
+        sync(self.device)
         self._prof.stop()
         out = Path(self.dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -462,7 +462,8 @@ def run_training(cfg, regime: str, device=None) -> None:
         profiler.close()
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -506,7 +507,7 @@ def _run_epochs(cfg, spec, model, optimizer, k, step_fn, loader,
 
             if global_step % cfg.LOG_FREQ == 0:
                 print(f'Logging step {global_step} (epoch {epoch_float:.2f}).')
-                _sync(device)  # the window's steps end before the evals start
+                sync(device)  # the window's steps end before the evals start
                 eval_start = timeit.default_timer()
                 evaluate('training')
                 evaluate('validation')

@@ -42,6 +42,9 @@ PORT_MODULES = [
     "parallel.halo",
     # slice 11: the training lifecycle tools and the native GeoTIFF decode
     "convergence_run", "lifecycle_run", "build_native",
+    # slice 12: the measurement surface
+    "bench", "bench_eval", "bench_assessment", "profile_step", "ablate_step",
+    "bench_remat_memory", "soak_loader", "eval_exactness",
 ]
 
 
@@ -121,6 +124,18 @@ def test_entry_points_default_to_the_card():
         evaluation.scene_probabilities(model, item)
     f1, _, _ = evaluation.inference_loop(model, [item], device="cpu")["change"]
     assert np.isfinite(f1)
+
+
+def test_cluster_check_run_case_defaults_to_the_card():
+    """``cluster_check.run_case`` without ``device`` asks for the card and
+    raises on a host without one, before it runs the case."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the default device resolves")
+    from multimodal_siamese_cd_tpu_torch.parallel import cluster_check
+
+    case = {"name": "step", "kind": "step", "config": "siamese"}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cluster_check.run_case(case)
 
 
 def test_chip_smoke_refuses_without_the_card_or_the_repo(tmp_path):

@@ -180,14 +180,14 @@ def world(fixture_dataset, tmp_path_factory):
     one = {}
     for case in cases:
         if case["kind"] == "step":
-            one[case["name"]] = cluster_check.run_case(case)
+            one[case["name"]] = cluster_check.run_case(case, "cpu")
     one_train = dict(cases[-1], paths={"DATASET": root,
                                        "OUTPUT": str(tmp / "train_one")})
-    cluster_check.run_case(one_train)
+    cluster_check.run_case(one_train, "cpu")
     wandb_compat.finish()
-    one["shares"] = [cluster_check.run_case(dict(cases[-4], shard=(r, WORLD)))
+    one["shares"] = [cluster_check.run_case(dict(cases[-4], shard=(r, WORLD)), "cpu")
                      for r in range(WORLD)]
-    one["unsharded"] = cluster_check.run_case(cases[-4])
+    one["unsharded"] = cluster_check.run_case(cases[-4], "cpu")
 
     # the JAX mesh's sharded evaluations, on the same weights
     evals = {}

@@ -176,11 +176,11 @@ def _jax_eval(root, weights, name: str):
 def _one_process(cases: list, trains: list) -> dict:
     """The port's one-process results of the step and count cases, and its
     runs of the train cases (each logged to its own output)."""
-    one = {c["name"]: cluster_check.run_case(c) for c in cases
+    one = {c["name"]: cluster_check.run_case(c, "cpu") for c in cases
            if c["kind"] in ("step", "measurer", "dualtask_counts")}
     for train in trains:
         try:
-            cluster_check.run_case(train)
+            cluster_check.run_case(train, "cpu")
         finally:
             wandb_compat.finish()
     return one
