@@ -13,13 +13,19 @@ directory, so no port is picked and none can be taken) and runs the job's
 cases in order, each rank on its rows: ``step`` takes optimizer steps with
 the rank feeding its rows of the global batch (on a
 ``TRAINER.SPATIAL_SHARDS`` grid, its data column's rows, of which the step
-keeps its height block), ``measurer`` and ``dualtask_counts`` run the wire
-evaluations sharded over the ranks (and the grid's space ranks),
-``scene_probs`` runs :func:`..evaluation.sharded_scene_probabilities`,
-``halo`` the halo exchange and :func:`.halo.whole` alone with their
-adjoints, ``train`` runs :func:`..trainers.run_training`, ``errors``
-records the messages of the errors a world raises. :func:`run_case` runs a
-case in the calling process, where, without a process group, it is the
+keeps its height block; with ``count_collectives``, every collective
+counted by call site, :mod:`..model_scaling`), ``scanned`` a window of
+``make_scanned_train_step``, ``measurer``
+and ``dualtask_counts`` run the wire evaluations sharded over the ranks
+(and the grid's space ranks; ``measurer`` also an item list, whole on
+every rank), ``scene_probs`` runs :func:`..evaluation.
+sharded_scene_probabilities`, ``halo`` the halo exchange and
+:func:`.halo.whole` alone with their adjoints, ``train`` runs
+:func:`..trainers.run_training`, ``errors`` records the messages of the
+errors a world raises, ``dryrun`` runs a list of such cases in order and
+keeps their summaries (:func:`..graft_entry.dryrun_multichip`,
+:mod:`..model_scaling`). :func:`run_case` runs a case in
+the calling process, where, without a process group, it is the
 one-process reference of the same case. Each rank writes
 ``{name}.rank{rank}.pt`` into ``out_dir`` and prints::
 
@@ -30,12 +36,19 @@ A job (``torch.save``'d, tensors and plain values only) is ``{"device":
 "cpu" | "cuda", "backend": "gloo" | "nccl", "cases": [case, ...]}``; a case
 is ``{"name", "kind", "config", "overrides", "paths", ...}`` with the keys its kind
 reads (:func:`run_case`). On the CPU each worker runs one torch thread.
+
+The ``<rendezvous_file>`` argument ``env`` joins through ``env://``
+instead: :func:`launch_cluster` then sets ``MSCD_DISTRIBUTED``,
+``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` and
+``LOCAL_RANK`` in each worker's environment, as ``torchrun`` sets them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -52,18 +65,18 @@ def main(argv=None) -> None:
     job = torch.load(argv[3], weights_only=True)
     out_dir = Path(argv[4])
     cuda = job["device"] == "cuda"
-    # ranks share the cards round-robin: more ranks than cards (the one-card
-    # check) is a world only gloo can run
-    local = rank % torch.cuda.device_count() if cuda else rank
-    os.environ.update(MSCD_DISTRIBUTED="1", WORLD_SIZE=str(world),
-                      RANK=str(rank), LOCAL_RANK=str(local))
+    init_method = None      # env://: launch_cluster set the variables
+    if rendezvous != "env":
+        os.environ.update(MSCD_DISTRIBUTED="1", WORLD_SIZE=str(world),
+                          RANK=str(rank), LOCAL_RANK=str(_local_rank(rank, cuda)))
+        init_method = f"file://{rendezvous}"
     if not cuda:
         torch.set_num_threads(1)
 
     from . import group
     from .distributed import maybe_initialize_distributed, shutdown
 
-    maybe_initialize_distributed(job["backend"], init_method=f"file://{rendezvous}")
+    maybe_initialize_distributed(job["backend"], init_method=init_method)
     if (group.world_size(), group.rank()) != (world, rank):
         raise RuntimeError(f"joined as rank {group.rank()} of {group.world_size()}, "
                            f"expected rank {rank} of {world}")
@@ -82,6 +95,20 @@ def main(argv=None) -> None:
         group.barrier()
     finally:
         shutdown()
+
+
+def _local_rank(rank: int, cuda: bool) -> int:
+    """The card of ``rank``: the ranks share the cards round-robin (more
+    ranks than cards, the one-card check, is a world only gloo can run)."""
+    return rank % torch.cuda.device_count() if cuda else rank
+
+
+def backend_for(device, world: int) -> str:
+    """The process group backend of a world of ``world`` ranks on
+    ``device``'s type: NCCL with a card for every rank, else gloo (the
+    ranks share the card, or run on the CPU)."""
+    cuda = torch.device(device).type == "cuda"
+    return "nccl" if cuda and torch.cuda.device_count() >= world else "gloo"
 
 
 def case_cfg(case: dict):
@@ -136,6 +163,43 @@ def _keep_first_launches(kept: list):
     return watched
 
 
+@contextlib.contextmanager
+def _bn_launches(case: dict, device, kept: list):
+    """Count the bn_stats launches of the block (``out["launches"]`` once
+    it closes), with ``case["keep_bn"]`` the first launch of each
+    signature kept in ``kept`` (:func:`_keep_first_launches`), and with
+    ``case["dropout"]`` False siamunet_diff's spatial dropout the identity
+    (its draws are each package's own, so a step held against the JAX
+    package's runs without them)."""
+    from ..models import batchnorm, networks
+    from ..ops.bn_stats import bn_stats
+
+    out: dict = {}
+    wrapper, dropout = batchnorm.bn_stats, networks.spatial_dropout
+    if case.get("keep_bn"):
+        batchnorm.bn_stats = _keep_first_launches(kept)
+    if not case.get("dropout", True):
+        networks.spatial_dropout = lambda x, p, generator, rows=None: x
+    try:
+        _sync(device)
+        bn_stats.launches = 0
+        yield out
+        _sync(device)
+        out["launches"] = bn_stats.launches
+    finally:
+        batchnorm.bn_stats, networks.spatial_dropout = wrapper, dropout
+
+
+def _rank_rows(case: dict, cfg, batch: int):
+    """This rank's rows of a global batch of ``batch`` (on a grid, its data
+    column's): :func:`.group.batch_rows` under the config's GRAD_ACCUM."""
+    from . import group
+
+    grid = group.grid(group.space_shards(cfg))
+    return torch.as_tensor(group.batch_rows(batch, int(cfg.TRAINER.get("GRAD_ACCUM", 1)),
+                                            grid.data_index, grid.data_size))
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -152,54 +216,47 @@ def _step_case(case: dict, device) -> dict:
     time of that many more steps and, over one more, the host time inside
     all-reduces (each preceded by a device synchronisation), the halo
     exchanges' apart (:func:`.halo.exchange_`), and the peak device memory
-    (on the card); ``dropout: False`` makes siamunet_diff's
+    (on the card); ``count_collectives``: also every collective of the
+    steps by call site (``counts``, :func:`_counted_collectives`) and the
+    parameters' count and bytes; ``dropout: False`` makes siamunet_diff's
     spatial dropout the identity (its draws are each package's own, so a
     step held against the JAX package's runs without them)."""
     import torch.distributed as dist
 
     from .. import train_lib
-    from ..models import batchnorm, networks
-    from ..ops.bn_stats import bn_stats
-    from . import group, halo
+    from ..models.factory import param_count
+    from . import halo
 
     cfg = case_cfg(case)
     if "stack" not in case:
         case = dict(case, **_synthetic_batch(*case["synthetic"]))
     model, optimizer = _model(case, cfg, device)
     step_fn = train_lib.make_train_step(model, optimizer, cfg, case["regime"])
-    grid = group.grid(group.space_shards(cfg))
-    rows = group.batch_rows(case["stack"].shape[0],
-                            int(cfg.TRAINER.get("GRAD_ACCUM", 1)),
-                            grid.data_index, grid.data_size)
-    index = torch.as_tensor(rows)
+    index = _rank_rows(case, cfg, case["stack"].shape[0])
     stack = case["stack"][index].to(device)
     is_labeled = case["is_labeled"][index].to(device)
     kept: list = []
-    wrapper, dropout = batchnorm.bn_stats, networks.spatial_dropout
-    if case.get("keep_bn"):
-        batchnorm.bn_stats = _keep_first_launches(kept)
-    if not case.get("dropout", True):
-        networks.spatial_dropout = lambda x, p, generator, rows=None: x
-    try:
-        _sync(device)
-        bn_stats.launches = 0
+    counts: dict = {}
+    counting = (_counted_collectives(counts) if case.get("count_collectives")
+                else contextlib.nullcontext())
+    with _bn_launches(case, device, kept) as counted, counting:
         for i in range(int(case.get("steps", 1))):
             metrics = step_fn(stack, is_labeled, i)
-        _sync(device)
-        launches = bn_stats.launches
-    finally:
-        batchnorm.bn_stats, networks.spatial_dropout = wrapper, dropout
     out = {
         "metrics": {k: float(v) for k, v in metrics.items()},
         "grads": {n: p.grad.detach().float().cpu()
                   for n, p in model.named_parameters()},
         "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
         "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
-        "launches": launches,
+        "launches": counted["launches"],
         "bn_kept": kept,
         "param_abs_sum": float(sum(p.detach().abs().double().sum()
                                    for p in model.parameters())),
     }
+    if case.get("count_collectives"):
+        out.update(counts=counts, param_count=param_count(model),
+                   param_bytes=sum(p.numel() * p.element_size()
+                                   for p in model.parameters()))
     n_timed = int(case.get("timed_steps", 0))
     cuda = torch.device(device).type == "cuda"
     if n_timed and cuda:
@@ -252,6 +309,91 @@ def _step_case(case: dict, device) -> dict:
     return out
 
 
+def _scanned_case(case: dict, device) -> dict:
+    """A window of ``make_scanned_train_step`` on the global super-batch
+    ``stacks`` / ``is_labeled`` (``(K, B, ...)``), this rank feeding its
+    rows of each step's batch; ``eager_steps``: the same K steps through
+    ``make_train_step`` one at a time, their metrics reduced as the window
+    reduces them (the window's reference). The window's metrics and mode,
+    the BatchNorm buffers after it, the bn_stats launches (``keep_bn``: the
+    first of each signature)."""
+    from .. import train_lib
+
+    cfg = case_cfg(case)
+    model, optimizer = _model(case, cfg, device)
+    index = _rank_rows(case, cfg, case["stacks"].shape[1])
+    stacks = case["stacks"][:, index].to(device)
+    labs = case["is_labeled"][:, index].to(device)
+    kept: list = []
+    with _bn_launches(case, device, kept) as counted:
+        if case.get("eager_steps"):
+            step = train_lib.make_train_step(model, optimizer, cfg, case["regime"])
+            metrics = train_lib._reduce_window_metrics(
+                [step(stacks[i], labs[i], i) for i in range(len(stacks))])
+            mode = "eager steps"
+        else:
+            window = train_lib.make_scanned_train_step(model, optimizer, cfg,
+                                                       case["regime"])
+            metrics, mode = window(stacks, labs, 0), window.mode
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "mode": mode,
+            "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
+            "launches": counted["launches"], "bn_kept": kept}
+
+
+@contextlib.contextmanager
+def _counted_collectives(counts: dict):
+    """Count every collective the port makes while the block runs, by call
+    site: ``counts[site] = {"kind", "calls", "bytes"}``, the bytes those of
+    the tensors handed to ``torch.distributed`` (what crosses the wire).
+    The sites are the port's wrappers of its collectives: sync-BN's sums
+    (``models.batchnorm._summed_over_ranks``, its flat ``2C`` float32
+    all-reduce), ``gradient`` (``group.all_reduce_flat_``), ``global_rows``
+    (the global outputs and labels, ``group.global_rows``), ``broadcast``
+    (``group.broadcast_``) and ``halo`` (``halo.exchange_``, an all-reduce
+    of kind ``halo``); a collective outside them counts under ``other``."""
+    import torch.distributed as dist
+
+    from ..models import batchnorm
+    from . import group, halo
+
+    open_sites: list = []
+
+    def at(site: str, fn):
+        def wrapped(*args, **kwargs):
+            open_sites.append(site)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                open_sites.pop()
+        return wrapped
+
+    def sent(kind: str, fn):
+        def wrapped(tensor, *args, **kwargs):
+            site = open_sites[-1] if open_sites else "other"
+            rec = counts.setdefault(site, {"kind": "halo" if site == "halo" else kind,
+                                           "calls": 0, "bytes": 0})
+            rec["calls"] += 1
+            rec["bytes"] += tensor.numel() * tensor.element_size()
+            return fn(tensor, *args, **kwargs)
+        return wrapped
+
+    patches = [(batchnorm, "_summed_over_ranks", "bn_sums"),
+               (group, "all_reduce_flat_", "gradient"),
+               (group, "global_rows", "global_rows"),
+               (group, "broadcast_", "broadcast"), (halo, "exchange_", "halo")]
+    saved = [(module, name, getattr(module, name)) for module, name, _ in patches]
+    saved += [(dist, "all_reduce", dist.all_reduce), (dist, "broadcast", dist.broadcast)]
+    for module, name, site in patches:
+        setattr(module, name, at(site, getattr(module, name)))
+    dist.all_reduce = sent("all_reduce", dist.all_reduce)
+    dist.broadcast = sent("broadcast", dist.broadcast)
+    try:
+        yield counts
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
 def _synthetic_batch(batch: int, side: int, seed: int) -> dict:
     """A staged global batch of ``batch`` wire stacks of ``side``² pixels in
     the siamese layout (12 image channels of standard normals, then three
@@ -271,42 +413,50 @@ def _eval_dataset(case: dict, cfg):
                                disable_multiplier=True, disable_unlabeled=True)
 
 
+def _scene_items(case: dict) -> list:
+    """The case's ``scenes``, full-scene items of ``(H, W, C)`` tensors, as
+    the evaluation takes them (numpy arrays)."""
+    return [{k: v.numpy() for k, v in item.items()} for item in case["scenes"]]
+
+
 def _measurer_case(case: dict, device) -> dict:
-    """``evaluation.run_measurer`` over the case's split at threshold 0.5,
+    """``evaluation.run_measurer`` at threshold 0.5 over the case's split,
     sharded over the ranks (and over the space ranks of the config's
-    ``TRAINER.SPATIAL_SHARDS`` grid): the counts, F1 and confusion
-    launches; ``keep_conf``: also host copies of every launch's inputs and
-    output."""
+    ``TRAINER.SPATIAL_SHARDS`` grid), or over the item list ``scenes``,
+    which every rank evaluates whole: the counts, F1 and confusion
+    launches; ``keep_conf``: also host copies of every kernel launch's
+    inputs and output."""
     from .. import evaluation
-    from ..ops.confusion import confusion_counts
+    from ..ops import confusion
     from . import group
 
     cfg = case_cfg(case)
     model, _ = _model(case, cfg, device)
-    ds = _eval_dataset(case, cfg)
+    ds = _scene_items(case) if "scenes" in case else _eval_dataset(case, cfg)
     kept: list = []
-    wrapper = evaluation.confusion_counts
+    run = confusion._run
     if case.get("keep_conf"):
-        def watched(*args):
-            got = wrapper(*args)
-            kept.append({"args": [a.detach().to("cpu", copy=True) for a in args],
+        def watched(probs, y, valid, thresholds, strict):
+            got = run(probs, y, valid, thresholds, strict)
+            kept.append({"args": [a.detach().to("cpu", copy=True)
+                                  for a in (probs, y, valid, thresholds)],
                          "out": got.to("cpu", copy=True)})
             return got
-        evaluation.confusion_counts = watched
+        confusion._run = watched
     try:
         _sync(device)
-        confusion_counts.launches = 0
+        confusion.confusion_counts.launches = 0
         m = evaluation.run_measurer(model, ds, np.asarray([0.5]),
                                     bucket=evaluation.eval_bucket(cfg),
                                     device=device, shard=case.get("shard"),
                                     space=group.space_shards(cfg))
         _sync(device)
     finally:
-        evaluation.confusion_counts = wrapper
+        confusion._run = run
     out = {k: torch.as_tensor(np.asarray(getattr(m, k), np.float64))
            for k in ("TP", "TN", "FP", "FN")}
     out["f1"] = float(np.asarray(m.compute_f1()).max())
-    out["launches"] = confusion_counts.launches
+    out["launches"] = confusion.confusion_counts.launches
     out["conf_kept"] = kept
     return out
 
@@ -325,10 +475,11 @@ def _dualtask_counts_case(case: dict, device) -> dict:
 
 def _scene_probs_case(case: dict, device) -> dict:
     """``evaluation.sharded_scene_probabilities`` of the split's scenes
-    ``items`` (default: the first), the height over every rank of the world
-    or, with ``ranks``, of the process group of those ranks (every rank
-    creates it; the others return nothing); ``tf32: False`` turns TF32 off
-    on the card. The maps and, on the card, the peak device memory."""
+    ``items`` (default: the first), or of the item list ``scenes``, the
+    height over every rank of the world or, with ``ranks``, of the process
+    group of those ranks (every rank creates it; the others return
+    nothing); ``tf32: False`` turns TF32 off on the card. The maps and, on
+    the card, the peak device memory."""
     import torch.distributed as dist
 
     from .. import evaluation
@@ -336,7 +487,10 @@ def _scene_probs_case(case: dict, device) -> dict:
 
     cfg = case_cfg(case)
     model, _ = _model(case, cfg, device)
-    ds = _eval_dataset(case, cfg)
+    if "scenes" in case:
+        ds, items = _scene_items(case), range(len(case["scenes"]))
+    else:
+        ds, items = _eval_dataset(case, cfg), case.get("items", [0])
     ranks = case.get("ranks")
     process_group = None
     if ranks is not None and group.initialized():
@@ -354,7 +508,7 @@ def _scene_probs_case(case: dict, device) -> dict:
     try:
         probs = [torch.from_numpy(evaluation.sharded_scene_probabilities(
             model, ds[i], bucket=evaluation.eval_bucket(cfg), device=device,
-            process_group=process_group)) for i in case.get("items", [0])]
+            process_group=process_group)) for i in items]
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     return {"probs": probs,
@@ -448,10 +602,31 @@ def _errors_case(case: dict, device) -> dict:
     }
 
 
+def summary(result: dict) -> dict:
+    """A case's result without its per-parameter tensors (gradients,
+    parameters; the BatchNorm buffers, a few thousand numbers, stay): what
+    a dry run reads."""
+    return {k: v for k, v in result.items() if k not in ("grads", "params")}
+
+
+def _dryrun_case(case: dict, device) -> dict:
+    """Every case of ``surfaces`` in order (each with its ``name``), the
+    device's cache handed back after each: ``{name: summary}``
+    (:func:`summary`), each with the host ``seconds`` its case took."""
+    out = {}
+    for sub in case["surfaces"]:
+        t0 = time.perf_counter()
+        out[sub["name"]] = dict(summary(run_case(sub, device)),
+                                seconds=time.perf_counter() - t0)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 _CASES = {"step": _step_case, "measurer": _measurer_case,
           "dualtask_counts": _dualtask_counts_case, "train": _train_case,
           "errors": _errors_case, "scene_probs": _scene_probs_case,
-          "halo": _halo_case}
+          "halo": _halo_case, "scanned": _scanned_case, "dryrun": _dryrun_case}
 
 
 def run_case(case: dict, device=None) -> dict:
@@ -463,17 +638,26 @@ def run_case(case: dict, device=None) -> dict:
     return _CASES[case["kind"]](case, resolve_device(device))
 
 
-def launch_cluster(job: dict, out_dir, world: int = 2, timeout: float = 600):
+def launch_cluster(job: dict, out_dir, world: int = 2, timeout: float = 600,
+                   rendezvous: str = "file"):
     """Run ``job`` on a world of ``world`` worker processes (this module,
     ``python -m ... <rank> <world> <rendezvous_file> <job_file>
     <out_dir>``) and return ``(rcs, [(stdout, stderr), ...])``; the
     results are in ``out_dir``.
 
-    The rendezvous is a ``file://`` in a fresh temporary directory (no
-    port to pick, so no race for one). ``timeout`` bounds the whole launch,
-    one shared deadline: a worker still running then is killed, with
-    every other, and its return code is not 0. Each worker runs from, and
-    imports from, the directory holding this package."""
+    ``rendezvous="file"``: a ``file://`` in a fresh temporary directory (no
+    port to pick, so no race for one). ``"env"``: ``env://``, each worker's
+    environment holding what ``torchrun`` sets (``MSCD_DISTRIBUTED=1``,
+    ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+    ``LOCAL_RANK``), on a free port picked here and released for rank 0's
+    store to bind: another process may take it in between, and the launch
+    then fails with rank 0's bind error in ``rank0.err`` (the caller may
+    try again). ``timeout`` bounds the whole
+    launch, one shared deadline. A worker that exits non-zero, or is still
+    running at the deadline, has every other worker killed: its peers
+    would wait for it in a collective. Each worker runs from, and imports
+    from, the directory holding this package; its output goes to
+    ``rank{r}.out`` / ``rank{r}.err`` in ``out_dir``."""
     repo_root = Path(__file__).resolve().parents[2]
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -483,32 +667,41 @@ def launch_cluster(job: dict, out_dir, world: int = 2, timeout: float = 600):
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(repo_root), env.get("PYTHONPATH")) if p)
     rdv_dir = tempfile.mkdtemp(prefix="mscd_rendezvous_")
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", __name__, str(rank), str(world),
-         str(Path(rdv_dir) / "init"), str(job_file), str(out_dir)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=str(repo_root)) for rank in range(world)]
-    deadline = time.monotonic() + timeout
-    results = []
+    cuda = job["device"] == "cuda"
+    envs = [env] * world
+    target = str(Path(rdv_dir) / "init")
+    if rendezvous == "env":
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        envs = [dict(env, MSCD_DISTRIBUTED="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port), WORLD_SIZE=str(world), RANK=str(rank),
+                     LOCAL_RANK=str(_local_rank(rank, cuda)))
+                for rank in range(world)]
+        target = "env"
+    logs = [(out_dir / f"rank{r}.out", out_dir / f"rank{r}.err") for r in range(world)]
+    procs = []
     try:
-        for p in procs:
-            try:
-                results.append(p.communicate(
-                    timeout=max(1.0, deadline - time.monotonic())))
-            except subprocess.TimeoutExpired:
-                # a hung worker blocks its peers in the same collective:
-                # reap them all
-                for q in procs:
-                    if q.poll() is None:
-                        q.kill()
-                results.append(p.communicate())
+        for rank in range(world):
+            with open(logs[rank][0], "w") as out, open(logs[rank][1], "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", __name__, str(rank), str(world), target,
+                     str(job_file), str(out_dir)],
+                    stdout=out, stderr=err, env=envs[rank], cwd=str(repo_root)))
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            rcs = [p.poll() for p in procs]
+            if None not in rcs or any(rc not in (None, 0) for rc in rcs):
+                break
+            time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+            p.wait()
         shutil.rmtree(rdv_dir, ignore_errors=True)
-    return [p.returncode for p in procs], results
+    return ([p.returncode for p in procs],
+            [(out.read_text(), err.read_text()) for out, err in logs])
 
 
 if __name__ == "__main__":

@@ -44,6 +44,7 @@ from .models.factory import create_network
 from .trainers import sync
 
 K, WINDOWS = 10, 2        # steps a window, windows traced
+WARM_LAUNCHES = 256       # kernels of the profiler's warm-up cycle (trace)
 
 CATEGORIES = ("conv/gemm", "transpose", "bn_stats", "bn/elementwise", "reduction",
               "optimizer", "confusion", "memcpy/memset", "other")
@@ -81,18 +82,35 @@ def categorize(kernel_name: str) -> str:
 def trace(fn, device: torch.device) -> dict:
     """One profiled call of ``fn`` (closed by a synchronisation): the host
     wall microseconds, and per device kernel name its microseconds and
-    launches (user annotations left out); ``prof`` is the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    launches (user annotations left out); ``prof`` is the profiler.
+
+    The profiler's warm-up cycle runs ``WARM_LAUNCHES`` small kernels first
+    and discards their records. Without it the first kernel records of a
+    trace went missing on an H100 (the profiler counted them out of its
+    window), more the longer the process had been tracing: none in its
+    first trace, about one more every 10-15 s after, so that the first
+    ``bn_stats`` of a step window was lost some minutes on. With it a
+    trace still lost a window's first kernels now and then (4 of 66
+    traces of two step windows), so a count read from a trace is a lower
+    bound."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     sync(device)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        warm = torch.zeros(1, device=device)
+        for _ in range(WARM_LAUNCHES):
+            warm.add_(1)
+        sync(device)
+        prof.step()
         t0 = time.perf_counter()
         fn()
         sync(device)
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
     kernels = defaultdict(lambda: [0.0, 0])
     for e in prof.events():
         if (e.device_type != torch.autograd.DeviceType.CUDA

@@ -308,6 +308,21 @@ def test_summarize_a_trace():
         "busy_share"] is None
 
 
+def test_trace_holds_the_call_and_not_its_warm_up():
+    """``trace`` records ``fn`` once and leaves the profiler's warm-up
+    cycle (``WARM_LAUNCHES`` in-place adds) out of what it returns."""
+    calls = []
+
+    def fn():
+        calls.append(1)
+        torch.ones(3).mul(2)
+
+    traced = profile_step.trace(fn, torch.device("cpu"))
+    names = [e.name for e in traced["prof"].events()]
+    assert calls == [1] and traced["wall_us"] > 0 and traced["kernels"] == {}
+    assert names.count("aten::mul") == 1 and "aten::add_" not in names
+
+
 # --- the other modules at a tiny size -----------------------------------------------
 
 def _tiny(tmp_path):

@@ -45,6 +45,8 @@ PORT_MODULES = [
     # slice 12: the measurement surface
     "bench", "bench_eval", "bench_assessment", "profile_step", "ablate_step",
     "bench_remat_memory", "soak_loader", "eval_exactness",
+    # slice 13: the entry points and the collective count
+    "graft_entry", "model_scaling",
 ]
 
 
