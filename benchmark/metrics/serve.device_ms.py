@@ -1,0 +1,9 @@
+"""Device milliseconds a served request: every traced device operation's
+time over the traced requests."""
+
+from benchmark.yardstick.readers import device_seconds
+
+
+def read(ctx):
+    total = device_seconds(ctx)
+    return None if total is None else total * 1e3 / ctx["requests"]

@@ -1,0 +1,7 @@
+"""Share of the traced training window in which no device operation ran."""
+
+from benchmark.yardstick.readers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)
