@@ -36,6 +36,8 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from .. import tracing
+
 # the arrays prefetch_to_device moves, and how many staged batches may wait
 _DEVICE_KEYS = ("stack", "is_labeled")
 _PREFETCH_DEPTH = 2
@@ -67,18 +69,19 @@ def _assemble_batch(dataset, seed: int, epoch: int, batch_idx: int,
     training dataset's samples are assembled straight into one ``(B, C, S,
     S)`` buffer of its ``stack_spec()``. ``rows``: only these rows of the
     batch ``indices`` describes, each with its own draws."""
-    children = np.random.SeedSequence([seed, epoch, batch_idx]).spawn(len(indices))
-    if rows is not None:
-        indices = [indices[r] for r in rows]
-        children = [children[r] for r in rows]
-    rngs = [np.random.default_rng(c) for c in children]
-    shape, dtype = dataset.stack_spec()
-    stack = np.empty((len(indices),) + tuple(shape), dtype)
-    items = [dataset.get(int(i), rng, out=stack[k])
-             for k, (i, rng) in enumerate(zip(indices, rngs))]
-    batch = collate(items)
-    batch["stack"] = stack
-    return batch
+    with tracing.span("loader.assemble", (epoch, batch_idx)):
+        children = np.random.SeedSequence([seed, epoch, batch_idx]).spawn(len(indices))
+        if rows is not None:
+            indices = [indices[r] for r in rows]
+            children = [children[r] for r in rows]
+        rngs = [np.random.default_rng(c) for c in children]
+        shape, dtype = dataset.stack_spec()
+        stack = np.empty((len(indices),) + tuple(shape), dtype)
+        items = [dataset.get(int(i), rng, out=stack[k])
+                 for k, (i, rng) in enumerate(zip(indices, rngs))]
+        batch = collate(items)
+        batch["stack"] = stack
+        return batch
 
 
 # the dataset of a process worker, installed once by the pool's initializer
@@ -157,35 +160,46 @@ class TrainLoader:
                                       self.rows)
             return
 
-        if self.worker_type == "thread":
-            pool = ThreadPoolExecutor(max_workers=self.num_workers)
-
-            def submit(b):
-                return pool.submit(_assemble_batch, self.dataset, self.seed,
-                                   epoch, b, batches[b], self.rows)
-        else:
-            pool = self._process_pool()
-
-            def submit(b):
-                return pool.submit(_assemble_in_worker, epoch, b, batches[b])
-
-        futures = []
+        # the epoch's start: the pool and the first batch; closed before
+        # that batch is yielded
+        start = tracing.span("loader.epoch_start", (epoch, 0))
+        start.__enter__()
+        started = True
+        futures, pool = [], None
         try:
+            if self.worker_type == "thread":
+                pool = ThreadPoolExecutor(max_workers=self.num_workers)
+
+                def submit(b):
+                    return pool.submit(_assemble_batch, self.dataset, self.seed,
+                                       epoch, b, batches[b], self.rows)
+            else:
+                pool = self._process_pool()
+
+                def submit(b):
+                    return pool.submit(_assemble_in_worker, epoch, b, batches[b])
+
             window = self.num_workers + _LOOKAHEAD
             for b in range(min(window, len(batches))):
                 futures.append(submit(b))
             for done in range(len(batches)):
-                batch = futures[done].result()
+                with tracing.span("loader.wait", (epoch, done)):
+                    batch = futures[done].result()
                 # a Future keeps its result: drop it so the epoch's batches
                 # are not all pinned in memory
                 futures[done] = None
                 if len(futures) < len(batches):
                     futures.append(submit(len(futures)))
+                if started:
+                    started = False
+                    start.__exit__(None, None, None)
                 yield batch
         finally:
+            if started:
+                start.__exit__(None, None, None)
             # an abandoned epoch (exception, DEBUG break) leaves no queued
             # batch builds running; the process pool itself lives on
-            if self.worker_type == "thread":
+            if self.worker_type == "thread" and pool is not None:
                 pool.shutdown(wait=False, cancel_futures=True)
             else:
                 for f in futures:
@@ -217,15 +231,18 @@ def group_batches(iterator: Iterable[dict], k: int) -> Iterator[dict]:
     metadata keys become lists. A trailing partial group is dropped (the
     trainer's execution plan checks divisibility up front)."""
     buf: list[dict] = []
+    groups = 0
     for batch in iterator:
         buf.append(batch)
         if len(buf) < k:
             continue
-        out: dict = {}
-        for key in buf[0]:
-            vals = [b[key] for b in buf]
-            out[key] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals
+        with tracing.span("loader.group", groups):
+            out: dict = {}
+            for key in buf[0]:
+                vals = [b[key] for b in buf]
+                out[key] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals
         buf = []
+        groups += 1
         yield out
 
 
@@ -243,10 +260,17 @@ def prefetch_to_device(iterator: Iterable[dict], device):
     keys = _DEVICE_KEYS
     device = torch.device(device)
     if device.type != "cuda":
-        for batch in iterator:
+        source, end, pulled = iter(iterator), object(), 0
+        while True:
+            tracing.follow_profiler()
+            # the pull builds the batch in this thread
+            with tracing.span("feed.wait", pulled):
+                batch = next(source, end)
+            if batch is end:
+                return
+            pulled += 1
             yield {k: torch.from_numpy(v) if k in keys and isinstance(v, np.ndarray)
                    else v for k, v in batch.items()}
-        return
 
     copy_stream = torch.cuda.Stream(device)
     q: queue.Queue = queue.Queue(maxsize=_PREFETCH_DEPTH)
@@ -266,13 +290,14 @@ def prefetch_to_device(iterator: Iterable[dict], device):
     def producer():
         try:
             with torch.cuda.device(device), torch.cuda.stream(copy_stream):
-                for batch in iterator:
-                    staged = {k: torch.from_numpy(v).pin_memory().to(
-                                  device, non_blocking=True)
-                              if k in keys and isinstance(v, np.ndarray) else v
-                              for k, v in batch.items()}
-                    event = torch.cuda.Event()
-                    event.record(copy_stream)
+                for staged_count, batch in enumerate(iterator):
+                    with tracing.span("feed.stage", staged_count):
+                        staged = {k: torch.from_numpy(v).pin_memory().to(
+                                      device, non_blocking=True)
+                                  if k in keys and isinstance(v, np.ndarray) else v
+                                  for k, v in batch.items()}
+                        event = torch.cuda.Event()
+                        event.record(copy_stream)
                     if not put((staged, event)):
                         return
         except BaseException as e:  # surfaced in the consumer
@@ -284,8 +309,13 @@ def prefetch_to_device(iterator: Iterable[dict], device):
     thread.start()
     try:
         consumer = torch.cuda.current_stream(device)
+        pulled = 0
         while True:
-            item = q.get()
+            tracing.follow_profiler()
+            # until a staged batch arrives
+            with tracing.span("feed.wait", pulled):
+                item = q.get()
+            pulled += 1
             if item is end:
                 if error:
                     raise error[0]

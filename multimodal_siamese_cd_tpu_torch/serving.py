@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import copy
 import io
+import itertools
 import json
 import zipfile
 from pathlib import Path
@@ -48,6 +49,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import tracing
 from .device import resolve_device
 
 DEFAULT_BUCKETS = ((256, 256), (512, 512), (1024, 1024))
@@ -213,6 +215,7 @@ class ServingModel:
                 f"Corrupt or incompatible serving bundle {self._path}: "
                 f"{type(e).__name__}: {e}") from e
         self._fns: dict = {}
+        self._calls = itertools.count(1)   # ids of the predict spans
 
     def _load(self, z) -> None:
         meta = json.loads(z.read("meta.json"))
@@ -269,22 +272,32 @@ class ServingModel:
     def _run(self, b: int, bh: int, bw: int, chunk: list) -> list:
         """One artifact call on ``chunk`` (at most ``b`` pairs), zero-padded
         to ``(b, C, bh, bw)``; the per-pair maps cropped back."""
-        x1 = np.zeros((b, self.meta["in_channels"], bh, bw), np.float32)
-        x2 = np.zeros_like(x1)
-        for j, (a1, a2) in enumerate(chunk):
-            h, w = a1.shape[:2]
-            x1[j, :, :h, :w] = np.moveaxis(a1, -1, 0)
-            x2[j, :, :h, :w] = np.moveaxis(a2, -1, 0)
+        # the zeroed host buffers and the strided copies into them
+        with tracing.span("serve.pad"):
+            x1 = np.zeros((b, self.meta["in_channels"], bh, bw), np.float32)
+            x2 = np.zeros_like(x1)
+            for j, (a1, a2) in enumerate(chunk):
+                h, w = a1.shape[:2]
+                x1[j, :, :h, :w] = np.moveaxis(a1, -1, 0)
+                x2[j, :, :h, :w] = np.moveaxis(a2, -1, 0)
         with torch.inference_mode():
-            probs = self._fn((b, bh, bw))(
-                self.leaves, torch.from_numpy(x1).to(self.device),
-                torch.from_numpy(x2).to(self.device)).cpu().numpy()
+            with tracing.span("serve.copy_in"):
+                t1 = torch.from_numpy(x1).to(self.device)
+                t2 = torch.from_numpy(x2).to(self.device)
+            # the artifact's launches (its first call loads it)
+            with tracing.span("serve.forward"):
+                out = self._fn((b, bh, bw))(self.leaves, t1, t2)
+            # waiting for the device, then the copy back
+            with tracing.span("serve.fetch"):
+                probs = out.cpu().numpy()
         return [probs[j, 0, :a1.shape[0], :a1.shape[1]]
                 for j, (a1, _) in enumerate(chunk)]
 
     def predict(self, x_t1: np.ndarray, x_t2: np.ndarray) -> np.ndarray:
-        h, w = self._check_pair(x_t1, x_t2)
-        return self._run(1, *self._bucket_for(h, w), [(x_t1, x_t2)])[0]
+        tracing.follow_profiler()
+        with tracing.span("serve.predict", next(self._calls)):
+            h, w = self._check_pair(x_t1, x_t2)
+            return self._run(1, *self._bucket_for(h, w), [(x_t1, x_t2)])[0]
 
     def predict_batch(self, pairs) -> list:
         """Score ``[(x_t1, x_t2), ...]`` scene pairs; returns per-pair (H, W)
@@ -292,21 +305,23 @@ class ServingModel:
         stacked and run through the largest exported batch artifact that
         fits, a partial final chunk through the smallest exported batch
         that holds it, zero-padded on the batch axis."""
-        results: list = [None] * len(pairs)
-        groups: dict = {}
-        for i, (x1, x2) in enumerate(pairs):
-            h, w = self._check_pair(x1, x2)
-            groups.setdefault(self._bucket_for(h, w), []).append(i)
+        tracing.follow_profiler()
+        with tracing.span("serve.predict", next(self._calls)):
+            results: list = [None] * len(pairs)
+            groups: dict = {}
+            for i, (x1, x2) in enumerate(pairs):
+                h, w = self._check_pair(x1, x2)
+                groups.setdefault(self._bucket_for(h, w), []).append(i)
 
-        max_b = self.batch_sizes[-1]
-        for (bh, bw), members in groups.items():
-            for start in range(0, len(members), max_b):
-                idx = members[start:start + max_b]
-                b = next(b for b in self.batch_sizes if b >= len(idx))
-                for i, probs in zip(idx, self._run(b, bh, bw,
-                                                   [pairs[i] for i in idx])):
-                    results[i] = probs
-        return results
+            max_b = self.batch_sizes[-1]
+            for (bh, bw), members in groups.items():
+                for start in range(0, len(members), max_b):
+                    idx = members[start:start + max_b]
+                    b = next(b for b in self.batch_sizes if b >= len(idx))
+                    for i, probs in zip(idx, self._run(b, bh, bw,
+                                                       [pairs[i] for i in idx])):
+                        results[i] = probs
+            return results
 
 
 def load_serving_bundle(path, device=None) -> ServingModel:

@@ -14,7 +14,7 @@ import time
 import numpy as np
 import torch
 
-from . import losses
+from . import losses, tracing
 from .data.augmentations import apply_augmentation, draw_augmentation
 from .models.batchnorm import BatchNorm2d
 from .models.factory import compute_dtype
@@ -489,17 +489,21 @@ class StepGraph:
             return self._warm_up_and_capture(stacks, labs, global_step)
         out = []
         for i in range(len(stacks)):
-            generator, decisions = self.step.draw(stacks.shape[1], global_step + i)
-            for key, value in decisions.items():
-                if value is not None:
-                    self.decisions[key].copy_(value)
-            self.dropout.refill(generator)
-            self.stack.copy_(stacks[i])
-            if labs[i] is not None:
-                self.lab.copy_(labs[i])
+            # the step's draws and its inputs copied into the static ones
+            with tracing.span("step.prepare"):
+                generator, decisions = self.step.draw(stacks.shape[1], global_step + i)
+                for key, value in decisions.items():
+                    if value is not None:
+                        self.decisions[key].copy_(value)
+                self.dropout.refill(generator)
+                self.stack.copy_(stacks[i])
+                if labs[i] is not None:
+                    self.lab.copy_(labs[i])
             self.graph.replay()
-            out.append({k: v.clone() for k, v in self.metrics.items()})
-            self.step.update()
+            # the metrics cloned out of the graph's memory, then AdamW
+            with tracing.span("step.update"):
+                out.append({k: v.clone() for k, v in self.metrics.items()})
+                self.step.update()
         return out
 
     def _warm_up_and_capture(self, stacks, labs, global_step) -> list:
@@ -559,11 +563,13 @@ def make_scanned_train_step(model, optimizer, cfg, regime: str):
         graph = StepGraph(step, device)
 
     def window(stacks: torch.Tensor, is_labeled, global_step: int) -> dict:
-        labs = [None] * len(stacks) if is_labeled is None else list(is_labeled)
-        if graph is not None:
-            return _reduce_window_metrics(graph(stacks, labs, global_step))
-        return _reduce_window_metrics([step(stacks[i], labs[i], global_step + i)
-                                       for i in range(len(stacks))])
+        tracing.follow_profiler()
+        with tracing.span("train.window", global_step):
+            labs = [None] * len(stacks) if is_labeled is None else list(is_labeled)
+            if graph is not None:
+                return _reduce_window_metrics(graph(stacks, labs, global_step))
+            return _reduce_window_metrics([step(stacks[i], labs[i], global_step + i)
+                                           for i in range(len(stacks))])
 
     window.mode = "eager" if graph is None else "graph"
     window.graph = graph

@@ -98,7 +98,9 @@ class ProfilerHook:
     global steps [10, 30) (CPU activity, and CUDA activity on the card),
     written into that directory as a Chrome trace when the window ends, or
     at :meth:`close` if the run ends inside it (the JAX package's
-    ``ProfilerHook``, trainers.py:104-130)."""
+    ``ProfilerHook``, trainers.py:104-130). While it runs, the step
+    thread's :mod:`.tracing` spans (the window, the feed's wait, each
+    step's host work) lie on the trace's timeline."""
 
     START_STEP, STOP_STEP = 10, 30
 

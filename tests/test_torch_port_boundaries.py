@@ -47,6 +47,8 @@ PORT_MODULES = [
     "bench_remat_memory", "soak_loader", "eval_exactness",
     # slice 13: the entry points and the collective count
     "graft_entry", "model_scaling",
+    # host spans inside the feed, the step and serving
+    "tracing",
 ]
 
 
