@@ -128,6 +128,142 @@ def test_predict_batch_matches_jax(pair):
         np.testing.assert_allclose(g, pair.port.predict(x1, x2), atol=1e-6)
 
 
+def _fresh(pair):
+    """A model of ``pair``'s bundle with no staging buffer yet."""
+    return serving.load_serving_bundle(pair.path, device="cpu")
+
+
+@pytest.mark.parametrize("call", ["predict", "predict_batch"])
+def test_staging_leaves_nothing_stale(pair, pieces, call):
+    """Larger scenes, then smaller ones in the same bucket, on one model:
+    the smaller ones' maps are bit-equal to a fresh model's, so nothing the
+    larger call staged reaches the artifact (``predict_batch``: two pairs
+    through the batch-4 artifact after four larger ones)."""
+    rng = np.random.default_rng(11)
+    served, fresh = _fresh(pair), _fresh(pair)
+    big = [_scene(rng, 64, 64) for _ in range(4)]
+    small = [_scene(rng, 40, 50), _scene(rng, 33, 36)]
+    if call == "predict":
+        served.predict(*big[0])
+        got, want = [served.predict(*small[0])], [fresh.predict(*small[0])]
+    else:
+        served.predict_batch(big)
+        got, want = served.predict_batch(small), fresh.predict_batch(small)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+
+
+def test_returned_maps_alias_no_buffer(pair):
+    """A returned map is unchanged by the calls after it."""
+    rng = np.random.default_rng(12)
+    served = _fresh(pair)
+    a, b = _scene(rng, 40, 50), _scene(rng, 40, 50)
+    first = served.predict(*a)
+    batch = served.predict_batch([a, b])
+    kept = [first.copy()] + [m.copy() for m in batch]
+    served.predict(*b)
+    served.predict_batch([b, a])
+    for got, want in zip([first] + batch, kept):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(params=["whole", "pieces"])
+def pieces(request, monkeypatch):
+    """The staging copy as one piece a scene, or cut into pieces of 1 KiB
+    over three threads (as ~1000² scenes are)."""
+    if request.param == "pieces":
+        monkeypatch.setattr(serving, "_PIECE_BYTES", 1024)
+        monkeypatch.setattr(serving, "_COPY_THREADS", 3)
+    return request.param
+
+
+@pytest.mark.parametrize("form", ["channel_planar", "row_strided", "float64", "fortran",
+                                  "float16", "flipped"])
+def test_staging_takes_any_layout_and_dtype(pair, pieces, form):
+    """Channel-planar crops (as the benchmark's serving traffic sends: an
+    ``(H, W, C)`` view of a ``(C, H, W)`` scene), row-strided crops of an
+    ``(H, W, C)`` scene, float64, Fortran-ordered, float16 and flipped
+    (negative-stride) scenes serve the maps of the same values as
+    contiguous float32, bit for bit."""
+    rng = np.random.default_rng(13)
+    if form == "channel_planar":
+        whole = [np.moveaxis(rng.uniform(0, 1, (6, 64, 64)).astype(np.float32), 0, -1)
+                 for _ in range(2)]
+        x = [a[5:45, 7:57] for a in whole]
+    elif form == "row_strided":
+        x = [a[5:45, 7:57] for a in _scene(rng, 64, 64)]
+    elif form == "float64":
+        x = [rng.uniform(0, 1, (40, 50, 6)) for _ in range(2)]
+    elif form == "fortran":
+        x = [np.asfortranarray(a) for a in _scene(rng, 40, 50)]
+    elif form == "float16":
+        x = [a.astype(np.float16) for a in _scene(rng, 40, 50)]
+    else:
+        x = [a[::-1, :, ::-1] for a in _scene(rng, 40, 50)]
+    assert form in ("float64", "float16") or not x[0].flags.c_contiguous
+    want = _fresh(pair).predict(*(np.ascontiguousarray(a, np.float32) for a in x))
+    np.testing.assert_array_equal(pair.port.predict(*x), want)
+
+
+def test_predict_batch_one_bucket_mixed_sizes(pair):
+    """Five pairs of five sizes in the 64 bucket (a chunk of 4, then 1):
+    each map equals ``predict``'s (atol 1e-6, the batch-4 artifact against
+    the batch-1 one)."""
+    rng = np.random.default_rng(14)
+    pairs = [_scene(rng, h, w) for h, w in [(64, 64), (40, 50), (33, 40), (60, 36), (50, 64)]]
+    for (x1, x2), got in zip(pairs, pair.port.predict_batch(pairs)):
+        assert got.shape == x1.shape[:2]
+        np.testing.assert_allclose(got, pair.port.predict(x1, x2), atol=1e-6)
+
+
+def test_concurrent_callers_get_serial_maps(pair, pieces):
+    """More threads than cores calling ``predict`` on one model, through
+    shared staging buffers and with the interpreter switching threads
+    often, get the maps of serial calls, bit for bit, and every call is
+    counted."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(15)
+    served = _fresh(pair)
+    scenes = [_scene(rng, h, w) for h, w in
+              [(64, 64), (40, 50), (33, 40), (60, 36), (32, 32), (30, 28)]]
+    serial = [served.predict(*s) for s in scenes]
+    workers, rounds = (os.cpu_count() or 1) + 2, 3
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(workers) as pool:
+            futures = [pool.submit(served.predict, *scenes[i % len(scenes)])
+                       for i in range(rounds * workers)]
+            for i, f in enumerate(futures):
+                np.testing.assert_array_equal(f.result(timeout=120), serial[i % len(scenes)])
+    finally:
+        sys.setswitchinterval(interval)
+    assert served.staging_stats()["calls"] == len(scenes) + rounds * workers
+
+
+def test_staging_counts(pair):
+    """Every artifact call is staged and counted (unpinned on the CPU); a
+    buffer is made once per (batch, bucket), so ten calls in one bucket
+    reuse it nine times."""
+    rng = np.random.default_rng(16)
+    served = _fresh(pair)
+    assert served.staging_stats() == {"calls": 0, "pinned": 0, "unpinned": 0,
+                                      "allocations": 0, "reuse": None}
+    for i in range(10):
+        served.predict(*_scene(rng, 40 + i, 50))
+    stats = served.staging_stats()
+    assert stats == {"calls": 10, "pinned": 0, "unpinned": 10, "allocations": 1,
+                     "reuse": 0.9}
+    assert stats["reuse"] >= 1 - 1 / stats["calls"]
+    served.predict(*_scene(rng, 32, 32))      # the 32 bucket: a buffer of its own
+    # the 64 bucket in chunks of 4 (a new buffer) and 1, the 32 bucket in 1
+    served.predict_batch([_scene(rng, 64, 64) for _ in range(5)] + [_scene(rng, 30, 28)])
+    assert served.staging_stats() == {"calls": 14, "pinned": 0, "unpinned": 14,
+                                      "allocations": 3, "reuse": 1 - 3 / 14}
+
+
 def test_bf16_weights_match_jax(tmp_path):
     """bf16 weight storage. The port widens the stored bf16 weights back to
     float32 and computes as before, so its bf16 bundle equals the JAX
