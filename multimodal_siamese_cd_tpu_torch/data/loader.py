@@ -77,11 +77,21 @@ def _assemble_batch(dataset, seed: int, epoch: int, batch_idx: int,
         rngs = [np.random.default_rng(c) for c in children]
         shape, dtype = dataset.stack_spec()
         stack = np.empty((len(indices),) + tuple(shape), dtype)
-        items = [dataset.get(int(i), rng, out=stack[k])
+        items = [_assemble_item(dataset, int(i), rng, stack[k])
                  for k, (i, rng) in enumerate(zip(indices, rngs))]
         batch = collate(items)
         batch["stack"] = stack
         return batch
+
+
+def _assemble_item(dataset, index: int, rng, out) -> dict:
+    """One sample assembled into ``out``; an unlabeled one (the dataset's
+    ``labeled`` flags, where it has them) inside a span of its own."""
+    labeled = getattr(dataset, "labeled", None)
+    if labeled is None or labeled[index]:
+        return dataset.get(index, rng, out=out)
+    with tracing.span("loader.assemble_unlabeled"):
+        return dataset.get(index, rng, out=out)
 
 
 # the dataset of a process worker, installed once by the pool's initializer
@@ -229,7 +239,10 @@ def group_batches(iterator: Iterable[dict], k: int) -> Iterator[dict]:
     multi-step execution (:func:`..train_lib.make_scanned_train_step`; the
     JAX package's ``group_batches``). Array keys gain a leading axis;
     metadata keys become lists. A trailing partial group is dropped (the
-    trainer's execution plan checks divisibility up front)."""
+    trainer's execution plan checks divisibility up front). While tracing
+    is on, each super-batch with an ``is_labeled`` key counts its rows
+    (``feed.rows``) and its unlabeled rows (``feed.rows_unlabeled``) under
+    its index."""
     buf: list[dict] = []
     groups = 0
     for batch in iterator:
@@ -241,6 +254,10 @@ def group_batches(iterator: Iterable[dict], k: int) -> Iterator[dict]:
             for key in buf[0]:
                 vals = [b[key] for b in buf]
                 out[key] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals
+        labs = out.get("is_labeled")
+        if labs is not None:
+            tracing.count("feed.rows", labs.size, groups)
+            tracing.count("feed.rows_unlabeled", labs.size - np.count_nonzero(labs), groups)
         buf = []
         groups += 1
         yield out

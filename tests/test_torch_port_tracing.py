@@ -1,10 +1,12 @@
-"""The port's host spans (``tracing.py``) on the CPU: nothing recorded and
-no profiler annotation while tracing is off; under a profiler, the serving
-call's spans nested in ``serve.predict`` and on the profiler's timeline;
-after ``enable()``, the loader's spans from its worker threads; the ring;
-a profiler's warm-up. The card's spans (``feed.stage`` on the staging
-thread, ``step.prepare`` / ``step.update`` around graph replays) are held
-by the ``cuda``-marked test, which skips here.
+"""The port's host spans and counters (``tracing.py``) on the CPU: nothing
+recorded and no profiler annotation while tracing is off; under a
+profiler, the serving call's spans nested in ``serve.predict`` and on the
+profiler's timeline; after ``enable()``, the loader's spans from its
+worker threads, an unlabeled item's span inside its batch's, the feed's
+row counters; the ring; a profiler's warm-up. The card's spans
+(``feed.stage`` on the staging thread, ``step.prepare`` / ``step.update``
+around graph replays) are held by the ``cuda``-marked test, which skips
+here.
 
 This file imports no JAX: on the card run it as ``python -m pytest
 --noconftest -q tests/test_torch_port_tracing.py``.
@@ -53,6 +55,18 @@ class _Items:
     def get(self, i, rng, out):
         out[...] = i + rng.random()
         return {"index": i, "is_labeled": True}
+
+
+class _Mixed(_Items):
+    """:class:`_Items` with the training dataset's ``labeled`` flags: every
+    third item unlabeled."""
+
+    def __init__(self, n: int):
+        super().__init__(n)
+        self.labeled = [i % 3 != 1 for i in range(n)]
+
+    def get(self, i, rng, out):
+        return {**super().get(i, rng, out), "is_labeled": self.labeled[i]}
 
 
 def _cfg():
@@ -117,7 +131,7 @@ def test_off_records_nothing_and_makes_no_annotation(path, server, monkeypatch):
     else:
         loader = TrainLoader(_Items(8), batch_size=2, num_workers=2, seed=1)
         assert len(list(prefetch_to_device(group_batches(loader, 2), "cpu"))) == 2
-    assert tracing.records() == []
+    assert tracing.records() == [] and tracing.counts() == []
 
 
 def test_predict_spans_under_the_profiler(server):
@@ -170,6 +184,69 @@ def test_loader_spans_from_worker_threads():
         assert all(w[2] == "loader.epoch_start" for w in inside)
     groups = _by_name(recs, "loader.group")
     assert [r[1] for r in groups] == list(range(len(loader) // k)) * epochs
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_count_records_only_while_on_and_reads_no_clock_while_off(on, monkeypatch):
+    class Clock:
+        reads = 0
+
+        @classmethod
+        def perf_counter(cls):
+            cls.reads += 1
+            return 5.0
+
+    monkeypatch.setattr(tracing, "time", Clock)
+    if on:
+        tracing.enable()
+    tracing.count("feed.rows", 16, 3)
+    tracing.count("feed.rows_unlabeled", 2)
+    if not on:
+        assert tracing.counts() == [] and Clock.reads == 0
+        return
+    main = threading.current_thread().name
+    assert tracing.counts() == [("feed.rows", 3, 16, main, 5.0),
+                                ("feed.rows_unlabeled", None, 2, main, 5.0)]
+    assert tracing.records() == []           # the spans' ring is apart
+    tracing.clear()
+    assert tracing.counts() == []
+
+
+def test_feed_counts_the_rows_and_unlabeled_rows_it_delivers():
+    tracing.enable()
+    loader = TrainLoader(_Mixed(30), batch_size=3, num_workers=2, seed=4)
+    delivered = []
+    for _ in range(2):
+        delivered += list(prefetch_to_device(group_batches(loader, 2), "cpu"))
+    counts = tracing.counts()
+    rows = [c for c in counts if c[0] == "feed.rows"]
+    unlabeled = [c for c in counts if c[0] == "feed.rows_unlabeled"]
+    # one of each a window, under the window's index in its epoch
+    assert [c[1] for c in rows] == [c[1] for c in unlabeled] == list(range(5)) * 2
+    labs = np.stack([b["is_labeled"].numpy() for b in delivered])
+    assert sum(c[2] for c in rows) == labs.size == 60
+    assert sum(c[2] for c in unlabeled) == np.count_nonzero(labs == 0) == 20
+    assert [c[2] for c in unlabeled] == [int((b["is_labeled"] == 0).sum()) for b in delivered]
+
+
+def test_unlabeled_item_span_inside_its_batch():
+    tracing.enable()
+    dataset = _Mixed(12)
+    loader = TrainLoader(dataset, batch_size=4, num_workers=2, seed=2)
+    batches = list(loader)
+    recs = tracing.records()
+    assemble = {r[1]: r for r in _by_name(recs, "loader.assemble")}
+    inner = _by_name(recs, "loader.assemble_unlabeled")
+    # once per unlabeled item delivered
+    assert len(inner) == sum(int((b["is_labeled"] == 0).sum()) for b in batches) == 4
+    for r in inner:
+        outer = assemble[r[1]]
+        assert r[2] == "loader.assemble" and r[3] == outer[3]
+        assert outer[4] <= r[4] <= r[5] <= outer[5]
+    # a batch's unlabeled spans are its unlabeled rows
+    for epoch, b in assemble:
+        assert sum(1 for r in inner if r[1] == (epoch, b)) == \
+            int((batches[b]["is_labeled"] == 0).sum())
 
 
 def test_feed_pull_on_the_cpu_holds_the_loader():
