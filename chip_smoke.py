@@ -39,6 +39,14 @@ script exits non-zero:
           ``F.conv2d`` on channels_last bf16 tensors (kernel, cuDNN, cuDNN,
           kernel), beside the bound, the plain version and the wrapper's
           host time per call;
+       d. the train-mode BatchNorm's elementwise kernels (``batch_norm_apply``,
+          ``batch_norm_dx``) at every BatchNorm shape of a full-width step at
+          batch 8 and 16 and at ragged shapes, bf16 and f32, bit-equal to
+          their plain versions (the float32 PyTorch composition); their time
+          per launch from CUDA graphs at 8 and 16 x 64 x 256^2 bf16, replayed
+          in turns (an order, then its reverse) with the plain versions and
+          the PyTorch calls of the same functions (``torch.batch_norm_elemt``,
+          ``torch.batch_norm_backward_elemt``), beside the byte bound;
   4. the inference path at full width: a synthetic SpaceNet7-layout split
      of ~1000^2 scenes, ``configs/siamese.yaml`` (topology [64,128,256,512],
      6 channels per date, bf16), seeded random weights and BN statistics,
@@ -227,8 +235,15 @@ script exits non-zero:
      global rows n x batch x (heads + 3) x crop^2 x 4 plus the label mask,
      exactly.
 
-The line before the last is one JSON object describing every kernel; the
-last line is ``{"ok": true, "device": {...}}``. Imports only the port,
+Wherever phases 5-15 count bn_stats launches, in this process, a child
+or a rank, they count the train-mode BatchNorm's elementwise kernels too:
+every call that launched bn_stats launched ``batch_norm_apply`` (forward)
+or ``batch_norm_dx`` (backward), so their launches sum to bn_stats's
+(``_engaged``). 15c's records carry no launches.
+
+The line before the last is one JSON object describing every kernel (the
+elementwise kernels' launches summed over those counts); the last line is
+``{"ok": true, "device": {...}}``. Imports only the port,
 torch, numpy and the standard library.
 """
 
@@ -280,7 +295,7 @@ from multimodal_siamese_cd_tpu_torch.data.synthetic import generate_fixture_data
 from multimodal_siamese_cd_tpu_torch.metrics import MultiThresholdMetric
 from multimodal_siamese_cd_tpu_torch.models import batchnorm
 from multimodal_siamese_cd_tpu_torch.models.factory import create_network
-from multimodal_siamese_cd_tpu_torch.ops import _build, bn_stats, confusion, conv3x3
+from multimodal_siamese_cd_tpu_torch.ops import _build, batch_norm, bn_stats, confusion, conv3x3
 from multimodal_siamese_cd_tpu_torch.parallel import cluster_check
 from multimodal_siamese_cd_tpu_torch.train_lib import eval_forward
 
@@ -527,7 +542,7 @@ def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     kernels = {"confusion": confusion._kernel, "bn_stats": bn_stats._kernel,
-               "conv3x3": conv3x3._kernel}
+               "conv3x3": conv3x3._kernel, "batch_norm": batch_norm._kernels}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         native = pool.submit(build_native.build)
@@ -939,6 +954,110 @@ def phase_conv3x3(card: dict) -> dict:
             "library_ms": lib_ms}
 
 
+# -- phase 3d -----------------------------------------------------------------
+
+def _bn_elementwise_inputs(gen, shape, dtype):
+    """``x``, ``dy`` of ``shape`` in ``dtype`` and five (C,) float32 vectors
+    (mean, scale, bias, a, b)."""
+    dev = torch.device("cuda")
+    x = (torch.randn(shape, generator=gen, device=dev) * 1.7 + 0.3).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    vecs = [torch.randn(shape[1], generator=gen, device=dev) * 0.7 for _ in range(5)]
+    return x, dy, vecs
+
+
+def phase_batch_norm(card: dict) -> tuple:
+    """batch_norm_apply and batch_norm_dx bit-equal to their plain versions
+    at every BatchNorm shape of a full-width step (batch 8 and 16) and at
+    ragged shapes, bf16 and f32; then their time per launch from CUDA
+    graphs at 8 and 16 x 64 x 256^2 bf16 beside the byte bound, the plain
+    versions and the PyTorch calls of the same functions; the rows hold
+    the 8 x 64 x 256^2 times."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for line in _ptxas_summary("batch_norm"):
+        log(f"  ptxas {line}")
+    log("batch_norm_apply / batch_norm_dx vs their plain versions (torch.equal):")
+    shapes = BN_SHAPES + [(16, *s[1:]) for s in BN_SHAPES] + BN_RAGGED
+    launches = (batch_norm.batch_norm_apply.launches,
+                batch_norm.batch_norm_dx.launches)
+    for shape in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy, (mean, scale, bias, a, b) = _bn_elementwise_inputs(gen, shape, dtype)
+            y = batch_norm.batch_norm_apply(x, mean, scale, bias)
+            dx = batch_norm.batch_norm_dx(dy, x, mean, a, b, scale)
+            want_y = batch_norm.batch_norm_apply_reference(x, mean, scale, bias)
+            want_dx = batch_norm.batch_norm_dx_reference(dy, x, mean, a, b, scale)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, want_y) and torch.equal(dx, want_dx)):
+                raise AssertionError(
+                    f"batch_norm kernels at {shape} {dtype}: not bit-equal to the "
+                    f"plain versions (max |diff| apply "
+                    f"{float((y.float() - want_y.float()).abs().max()):.3e}, dx "
+                    f"{float((dx.float() - want_dx.float()).abs().max()):.3e})")
+            del x, dy, y, dx, want_y, want_dx
+        log(f"  {shape}: bf16 and f32 bit-equal (width "
+            f"{batch_norm.vector_width(shape, torch.bfloat16, [0])} / "
+            f"{batch_norm.vector_width(shape, torch.float32, [0])})")
+    made = (batch_norm.batch_norm_apply.launches - launches[0],
+            batch_norm.batch_norm_dx.launches - launches[1])
+    if made != (2 * len(shapes), 2 * len(shapes)):
+        raise AssertionError(f"batch_norm launches {made}, expected "
+                             f"{2 * len(shapes)} of each")
+    torch.cuda.empty_cache()
+
+    bw = peaks(card["name"])[0]
+    rows = {}
+    for shape in ((8, 64, 256, 256), (16, 64, 256, 256)):
+        x, dy, (mean, scale, bias, a, b) = _bn_elementwise_inputs(
+            gen, shape, torch.bfloat16)
+        c, n = shape[1], x.numel() // shape[1]
+        y, dx = torch.empty_like(x), torch.empty_like(x)
+        invstd = torch.ones(c, device=x.device)
+        count = torch.full((1,), n, dtype=torch.int32, device=x.device)
+        fns = {"apply": lambda: batch_norm.launch_apply(x, mean, scale, bias, y),
+               "apply_plain": lambda: batch_norm.batch_norm_apply_reference(
+                   x, mean, scale, bias),
+               "dx": lambda: batch_norm.launch_dx(dy, x, mean, a, b, scale, dx),
+               "dx_plain": lambda: batch_norm.batch_norm_dx_reference(
+                   dy, x, mean, a, b, scale)}
+        library = {"apply_library": lambda: torch.batch_norm_elemt(
+                       x, scale, bias, mean, invstd, 1e-5),
+                   "dx_library": lambda: torch.batch_norm_backward_elemt(
+                       dy, x, mean, invstd, scale, a, b, count)}
+        for name, fn in library.items():
+            try:
+                fn()
+                fns[name] = fn
+            except (RuntimeError, TypeError) as e:
+                log(f"  {name}: {str(e).splitlines()[0][:100]} (not timed)")
+        order = list(fns) + list(reversed(fns))
+        got = graph_time_ms(fns, order, inner=10, rounds=5)
+        esize = x.element_size()
+        for kind, tensors, vectors in (("apply", 2, 3), ("dx", 3, 4)):
+            n_bytes = tensors * x.numel() * esize + vectors * c * 4
+            bound_ms = n_bytes / bw * 1e3
+            k_ms = got[kind]
+            lib_ms = got.get(f"{kind}_library")
+            log(f"batch_norm_{kind} at {shape} bf16 on {card['smi']} (CUDA graphs "
+                f"of 10 launches, median of 5 rounds in turns): {k_ms * 1e3:.1f} us, "
+                f"bound {bound_ms * 1e3:.1f} us ({n_bytes / 1e6:.1f} MB at "
+                f"{bw / 1e12:.2f} TB/s), {bound_ms / k_ms * 100:.1f}% of the bound, "
+                f"{n_bytes / k_ms / 1e6:.0f} GB/s; plain version "
+                f"{got[kind + '_plain'] * 1e3:.1f} us "
+                f"({got[kind + '_plain'] / k_ms:.2f}x); PyTorch's "
+                f"{'batch_norm_elemt' if kind == 'apply' else 'batch_norm_backward_elemt'} "
+                + (f"{lib_ms * 1e3:.1f} us" if lib_ms else "not timed"))
+            rows.setdefault(kind, {
+                "name": f"batch_norm_{kind}", "route": "cuda",
+                "source": "multimodal_siamese_cd_tpu_torch/ops/csrc/batch_norm.cu",
+                "replaces": None, "launches": None, "max_abs_err": 0.0, "ms": k_ms,
+                "plain_ms": got[kind + "_plain"], "bound_ms": bound_ms,
+                "bound_by": "bytes", "library_ms": lib_ms})
+        del x, dy, y, dx, fns, library
+        torch.cuda.empty_cache()
+    return rows["apply"], rows["dx"]
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def write_split(root: Path) -> list:
@@ -1160,16 +1279,46 @@ def _records(out: Path, name: str) -> list:
             if "_event" not in r]
 
 
+# train-mode BatchNorm's elementwise kernels over the main-path phases
+# (:func:`_engaged`): their launches, and the bn_stats launches of the
+# same calls
+ELEMENTWISE = {"apply": 0, "dx": 0, "bn_stats": 0}
+
+
+def _engaged(label: str, bn: int, elementwise) -> None:
+    """Raise unless every train-mode BatchNorm call that launched bn_stats
+    also launched its elementwise kernel: a forward's bn_stats(x, x) then
+    batch_norm_apply, a backward's bn_stats(dy, x) then batch_norm_dx. Each
+    elementwise launch follows its own call's bn_stats launch, so
+    ``apply + dx == bn`` holds only when no call took another way; every
+    backward follows its forward, so ``dx <= apply``. Adds the counts to
+    ``ELEMENTWISE``."""
+    apply, dx = elementwise
+    if apply + dx != bn or dx > apply:
+        raise AssertionError(f"{label}: batch_norm_apply {apply} + batch_norm_dx "
+                             f"{dx} launches beside {bn} of bn_stats: a train-mode "
+                             f"BatchNorm call missed its elementwise kernel")
+    ELEMENTWISE["apply"] += apply
+    ELEMENTWISE["dx"] += dx
+    ELEMENTWISE["bn_stats"] += bn
+
+
 def _reset_counts() -> None:
     bn_stats.bn_stats.launches = 0
+    batch_norm.batch_norm_apply.launches = 0
+    batch_norm.batch_norm_dx.launches = 0
     confusion.confusion_counts.launches = 0
     confusion.strict_confusion_counts.launches = 0
 
 
-def _counts() -> tuple:
+def _counts(label: str) -> tuple:
     """Launches of bn_stats, the rounding-rule and the strict-rule confusion
-    kernel since the last reset."""
-    return (bn_stats.bn_stats.launches, confusion.confusion_counts.launches,
+    kernel since the last reset, the elementwise kernels' held to
+    bn_stats's (:func:`_engaged`, once a reset)."""
+    bn = bn_stats.bn_stats.launches
+    _engaged(label, bn, (batch_norm.batch_norm_apply.launches,
+                         batch_norm.batch_norm_dx.launches))
+    return (bn, confusion.confusion_counts.launches,
             confusion.strict_confusion_counts.launches)
 
 
@@ -1195,7 +1344,7 @@ def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
         trainers.run_training(cfg, "supervised", device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        bn_launches, conf_launches, _ = _counts()
+        bn_launches, conf_launches, _ = _counts("phase 5 run_training")
         # --------------------------------------------------------------------
         peak_run = torch.cuda.max_memory_allocated()
     finally:
@@ -1263,7 +1412,7 @@ def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
     _reset_counts()
     step_ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"],
                                            step), runs=5, warmup=0)
-    per_step = bn_stats.bn_stats.launches / 5
+    per_step = _counts("phase 5 staged steps")[0] / 5
     log(f"one step on a staged batch (CUDA events, median of 5): "
         f"{step_ms:.1f} ms = {cfg.TRAINER.BATCH_SIZE / step_ms * 1e3:.2f} "
         f"patches/s of device time; peak device memory "
@@ -1287,7 +1436,7 @@ def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
         _reset_counts()
         trainers.run_training(cfg, "supervised", device=dev)
         torch.cuda.synchronize()
-        bn_launches, conf_launches, _ = _counts()
+        bn_launches, conf_launches, _ = _counts("phase 5 resume")
     finally:
         wandb_compat.finish()
     last = _records(out, cfg.NAME)[-1]
@@ -1332,7 +1481,7 @@ def phase_dualtask(card: dict, rows: dict, dev: torch.device, root: Path,
         trainers.run_training(cfg, "dualtask", device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        bn_launches, conf_launches, strict_launches = _counts()
+        bn_launches, conf_launches, strict_launches = _counts("phase 6 run_training")
         # --------------------------------------------------------------------
         peak_run = torch.cuda.max_memory_allocated()
     finally:
@@ -1400,7 +1549,7 @@ def phase_dualtask(card: dict, rows: dict, dev: torch.device, root: Path,
     _reset_counts()
     step_ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"],
                                            step), runs=5, warmup=0)
-    per_step = bn_stats.bn_stats.launches / 5
+    per_step = _counts("phase 6 staged steps")[0] / 5
     log(f"one dual-task step on a staged batch (CUDA events, median of 5): "
         f"{step_ms:.1f} ms = {cfg.TRAINER.BATCH_SIZE / step_ms * 1e3:.2f} "
         f"patches/s of device time; peak device memory "
@@ -1426,7 +1575,7 @@ def phase_dualtask(card: dict, rows: dict, dev: torch.device, root: Path,
     counts = evaluation.dualtask_quantitative_counts(model, ds, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    _, conf_launches, strict_launches = _counts()
+    _, conf_launches, strict_launches = _counts("phase 6 dualtask_quantitative_counts")
     # ---------------------------------------------------------------------
     rows["confusion_counts_strict"]["launches"] = strict_launches
     log(f"dualtask_quantitative_counts: {len(ds)} scenes in {wall:.3f} s = "
@@ -1514,7 +1663,7 @@ def _staged_step(dev: torch.device, root: Path, aois: list, name: str,
     _reset_counts()
     step_ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"], 1),
                            runs=3, warmup=0)
-    per_step = bn_stats.bn_stats.launches / 3
+    per_step = _counts(f"{name} staged steps")[0] / 3
     losses = {k: float(v) for k, v in out.items()}
     line = (f"{cfg.MODEL.TYPE} ({name}, {regime}, batch {cfg.TRAINER.BATCH_SIZE}, "
             f"{int(sum(batch['is_labeled'].tolist()))} labeled): {step_ms:.1f} ms "
@@ -1654,7 +1803,7 @@ def phase_semisup(card: dict, rows: dict, dev: torch.device, root: Path,
             trainers.run_training(cfg, "semisupervised", device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            bn_launches, conf_launches, _ = _counts()
+            bn_launches, conf_launches, _ = _counts("phase 7 run_training")
             # ------------------------------------------------------------------
         peak_run = torch.cuda.max_memory_allocated()
     finally:
@@ -1741,12 +1890,13 @@ def phase_semisup(card: dict, rows: dict, dev: torch.device, root: Path,
         _reset_counts()
         got = {k: float(v) for k, v in
                step_fn(batch["stack"], batch["is_labeled"], step).items()}
+        bn = _counts(f"all-{'labeled' if labeled else 'unlabeled'} step")[0]
         log(f"  all-{'labeled' if labeled else 'unlabeled'} step: {absent} "
             f"{got[absent]}, loss {got['loss']:.6f} == {present} "
             f"{got[present]:.6f}, n_labeled {got['n_labeled']:g}, bn_stats launches "
-            f"{bn_stats.bn_stats.launches}")
+            f"{bn}")
         if (got[absent] != 0.0 or got["loss"] != got[present] or got[present] <= 0
-                or bn_stats.bn_stats.launches != expect):
+                or bn != expect):
             raise AssertionError(f"all-{'labeled' if labeled else 'unlabeled'} "
                                  f"step: {got}")
 
@@ -1760,7 +1910,7 @@ def phase_semisup(card: dict, rows: dict, dev: torch.device, root: Path,
     _reset_counts()
     step_ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"],
                                            step), runs=5, warmup=0)
-    per_step = bn_stats.bn_stats.launches / 5
+    per_step = _counts("phase 7 staged steps")[0] / 5
     log(f"one semi-supervised step on a staged batch "
         f"({int(sum(batch['is_labeled'].tolist()))} of {cfg.TRAINER.BATCH_SIZE} "
         f"labeled; CUDA events, median of 5): {step_ms:.1f} ms = "
@@ -1817,7 +1967,7 @@ def phase_siamunet_diff(card: dict, rows: dict, dev: torch.device, root: Path,
             trainers.run_training(cfg, "supervised", device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            bn_launches, conf_launches, _ = _counts()
+            bn_launches, conf_launches, _ = _counts("phase 8 run_training")
             # ------------------------------------------------------------------
         peak_run = torch.cuda.max_memory_allocated()
     finally:
@@ -1907,7 +2057,7 @@ def phase_siamunet_diff(card: dict, rows: dict, dev: torch.device, root: Path,
     _reset_counts()
     step_ms = cuda_time_ms(lambda: step_fn(batch["stack"], batch["is_labeled"],
                                            step), runs=5, warmup=0)
-    per_step = bn_stats.bn_stats.launches / 5
+    per_step = _counts("phase 8 staged steps")[0] / 5
     log(f"one siamunet_diff step on a staged batch (CUDA events, median of 5): "
         f"{step_ms:.1f} ms = {cfg.TRAINER.BATCH_SIZE / step_ms * 1e3:.2f} "
         f"patches/s of device time; peak device memory "
@@ -1989,7 +2139,7 @@ def phase_clis(dev: torch.device, root: Path, aois: list) -> None:
     text, _, sec = _run_cli("assessment_semantics", assessment_semantics.main,
                             ["-c", "dtsiamese", "-o", str(dual_out)] + base + device
                             + _split_opts(aois, aois))
-    _, _, strict_cli = _counts()
+    _, _, strict_cli = _counts("assessment_semantics")
     cfg = _train_cfg(root, dual_out, aois, "dtsiamese")
     cfg.DATASET.TEST_IDS = aois
     model, _, _ = checkpoints.load_checkpoint(1, cfg, device=dev)
@@ -2023,7 +2173,7 @@ def phase_clis(dev: torch.device, root: Path, aois: list) -> None:
                             ["-c", "dtsiamese", "-o", str(dual_out)] + base + device
                             + _split_opts(aois, aois)
                             + ["DATALOADER.SCENE_CACHE", "False"])
-    _, _, strict_off = _counts()
+    _, _, strict_off = _counts("assessment_semantics, cache off")
     cfg.DATALOADER.SCENE_CACHE = False
     ds = MultimodalCDDataset(cfg, "test", no_augmentations=True,
                              dataset_mode="first_last", disable_multiplier=True,
@@ -2178,7 +2328,7 @@ def _knob_step(rows: dict, dev: torch.device, cfg, batch: dict, state: dict,
         _reset_counts()
         step_fn(batch["stack"], batch["is_labeled"], 0)
         torch.cuda.synchronize()
-        launches = bn_stats.bn_stats.launches
+        launches = _counts(f"accum {accum} remat {remat}")[0]
         # -----------------------------------------------------------------
     buffers = {k: v.clone() for k, v in model.state_dict().items()
                if k.rsplit(".", 1)[-1] in ("running_mean", "running_var",
@@ -2290,7 +2440,7 @@ def phase_knob_run(card: dict, rows: dict, dev: torch.device, root: Path,
             trainers.run_training(cfg, "supervised", device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            bn_launches, conf_launches, _ = _counts()
+            bn_launches, conf_launches, _ = _counts("9c run_training")
             # ------------------------------------------------------------
     finally:
         wandb_compat.finish()
@@ -2398,7 +2548,9 @@ def phase_parallel(card: dict, rows: dict, dev: torch.device, root: Path,
                                         f"two-rank (rank {rank})")
         log(f"  rank {rank}: bn_stats launches {res['launches']} (expected "
             f"{per_step}), its {len(res['bn_kept'])} signatures within the limit "
-            f"(worst {worst:.4f}, max |kernel - ref| {err:.3e})")
+            f"(worst {worst:.4f}, max |kernel - ref| {err:.3e}); batch_norm_apply, "
+            f"batch_norm_dx launches {res['elementwise']}")
+        _engaged(f"two-rank (rank {rank})", res["launches"], res["elementwise"])
         if res["launches"] != per_step:
             raise AssertionError(f"rank {rank} launched bn_stats {res['launches']} "
                                  f"times in one step, expected {per_step}")
@@ -2494,7 +2646,7 @@ def phase_nccl(card: dict, rows: dict, dev: torch.device, root: Path,
                     trainers.run_training(cfg, "supervised")  # this rank's card
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
-                    bn_launches, conf_launches, _ = _counts()
+                    bn_launches, conf_launches, _ = _counts("10b NCCL run_training")
                     # ----------------------------------------------------------
                 break
             except torch.distributed.DistNetworkError as e:
@@ -2656,7 +2808,9 @@ def phase_space(card: dict, rows: dict, dev: torch.device, root: Path,
                                         f"height-sharded (rank {rank})")
         log(f"  rank {rank}: bn_stats launches {res['launches']} (expected "
             f"{per_step}) at {shapes}, the first of each signature within the "
-            f"limit (worst {worst:.4f}, max |kernel - ref| {err:.3e})")
+            f"limit (worst {worst:.4f}, max |kernel - ref| {err:.3e}); "
+            f"batch_norm_apply, batch_norm_dx launches {res['elementwise']}")
+        _engaged(f"height-sharded (rank {rank})", res["launches"], res["elementwise"])
         if res["launches"] != per_step:
             raise AssertionError(f"rank {rank} launched bn_stats {res['launches']} "
                                  f"times in one step, expected {per_step}")
@@ -2834,7 +2988,7 @@ def _graph_against_eager(rows: dict, dev: torch.device, cfg, regime: str,
     _reset_counts()
     got = [window(windows[0]["stack"], windows[0]["is_labeled"], 0)]
     torch.cuda.synchronize()
-    first_launches = bn_stats.bn_stats.launches
+    first_launches = _counts(f"{label}: first window")[0]
     for j, w in enumerate(windows[1:-1], start=1):
         got.append(window(w["stack"], w["is_labeled"], j * k))
     _reset_counts()
@@ -2843,7 +2997,7 @@ def _graph_against_eager(rows: dict, dev: torch.device, cfg, regime: str,
         lambda: got.append(window(windows[-1]["stack"], windows[-1]["is_labeled"],
                                   (len(windows) - 1) * k)),
         match="bn_stats_partial")
-    replay_counted = bn_stats.bn_stats.launches
+    replay_counted = _counts(f"{label}: a replayed window")[0]
 
     eager_model = create_network(cfg, device=dev)
     eager_model.load_state_dict(state)
@@ -2861,7 +3015,7 @@ def _graph_against_eager(rows: dict, dev: torch.device, cfg, regime: str,
                        for i in range(k)]
             eager.append(train_lib._reduce_window_metrics(metrics))
         torch.cuda.synchronize()
-        eager_launches = bn_stats.bn_stats.launches
+        eager_launches = _counts(f"{label}: eager steps")[0]
         # ------------------------------------------------------------
     _check_bn_launches(rows, dev, bn_seen, label)
     diffs = {key: max(_window_diffs(g, e)[key] for g, e in zip(got[1:], eager[1:]))
@@ -3050,7 +3204,7 @@ def phase_steps(card: dict, rows: dict, dev: torch.device, root: Path,
                     trainers.run_training(run_cfg, "supervised", device=dev)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - w0
-                bn_launches, conf_launches, _ = _counts()
+                bn_launches, conf_launches, _ = _counts(f"12c k = {k}")
                 # ------------------------------------------------------------
             finally:
                 wandb_compat.finish()
@@ -3164,7 +3318,7 @@ def phase_convergence(card: dict, rows: dict, dev: torch.device, root: Path) -> 
             train_supervised.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        bn_launches, conf_launches, _ = _counts()
+        bn_launches, conf_launches, _ = _counts("13a convergence run")
         # ----------------------------------------------------------------------
     for line in printed.getvalue().splitlines()[:8]:
         log(f"  [train_supervised] {line}")
@@ -3222,8 +3376,13 @@ def watch_child(watch_dir: Path, module: str, argv: list) -> None:
     b) and of every confusion launch are saved for the parent to hold
     against the plain versions."""
     watch_dir.mkdir(parents=True, exist_ok=True)
-    counts = np.memmap(watch_dir / "counts.bin", dtype=np.int64, mode="w+", shape=(2,))
+    counts = np.memmap(watch_dir / "counts.bin", dtype=np.int64, mode="w+", shape=(4,))
     seen, saved = set(), [0]
+
+    def record(*_):
+        counts[:] = (bn_stats.bn_stats.launches, confusion.confusion_counts.launches,
+                     batch_norm.batch_norm_apply.launches,
+                     batch_norm.batch_norm_dx.launches)
 
     def save(kind, obj):
         path = watch_dir / f"{kind}_{saved[0]}.pt"
@@ -3232,7 +3391,7 @@ def watch_child(watch_dir: Path, module: str, argv: list) -> None:
         path.with_suffix(".part").replace(path)
 
     def keep_bn(args, out):
-        counts[0] = bn_stats.bn_stats.launches
+        record()
         a, b = args
         key = (tuple(a.shape), a.dtype, a is b)
         if key not in seen:
@@ -3241,19 +3400,22 @@ def watch_child(watch_dir: Path, module: str, argv: list) -> None:
                         tuple(o.detach().cpu() for o in out)))
 
     def keep_conf(args, out):
-        counts[1] = confusion.confusion_counts.launches
+        record()
         save("conf", (tuple(t.detach().cpu() for t in args), out.cpu()))
 
     with _watch(batchnorm, "bn_stats", keep_bn), \
+            _watch(batchnorm, "batch_norm_apply", record), \
+            _watch(batchnorm, "batch_norm_dx", record), \
             _watch(evaluation, "confusion_counts", keep_conf):
         importlib.import_module(f"multimodal_siamese_cd_tpu_torch.{module}").main(argv)
 
 
 def _watched(watch_dir: Path) -> tuple:
     """A child's launch counts and its kept launches, as :func:`_keepers`
-    keeps them: (bn_stats launches, confusion launches, bn_seen,
-    conf_calls)."""
-    bn_launches, conf_launches = np.fromfile(watch_dir / "counts.bin", dtype=np.int64)
+    keeps them: (bn_stats launches, confusion launches, (batch_norm_apply,
+    batch_norm_dx) launches, bn_seen, conf_calls)."""
+    bn_launches, conf_launches, *elementwise = np.fromfile(watch_dir / "counts.bin",
+                                                           dtype=np.int64).tolist()
     bn_seen, conf_calls = {}, []
     for path in sorted(watch_dir.glob("*.pt")):
         kept = torch.load(path, weights_only=False)
@@ -3261,7 +3423,7 @@ def _watched(watch_dir: Path) -> tuple:
             bn_seen[kept[0]] = kept[1:]
         else:
             conf_calls.append(kept)
-    return int(bn_launches), int(conf_launches), bn_seen, conf_calls
+    return bn_launches, conf_launches, elementwise, bn_seen, conf_calls
 
 
 def phase_lifecycle(card: dict, rows: dict, dev: torch.device, root: Path) -> tuple:
@@ -3311,10 +3473,16 @@ def phase_lifecycle(card: dict, rows: dict, dev: torch.device, root: Path) -> tu
     resumed_steps = plan["steps_per_epoch"] * (args.epochs - plan["resume_epoch"])
     for (module, watch_dir), label in zip(children, ("phase A (killed)", "phase B (resumed)",
                                                      "assessment_change")):
-        bn_launches, conf_launches, bn_seen, conf_calls = _watched(watch_dir)
+        bn_launches, conf_launches, elementwise, bn_seen, conf_calls = _watched(
+            watch_dir)
         log(f"  13b {label}: launches bn_stats {bn_launches}, confusion "
-            f"{conf_launches}; kept {len(bn_seen)} bn_stats signatures, "
-            f"{len(conf_calls)} confusion launches")
+            f"{conf_launches}, batch_norm_apply and batch_norm_dx {elementwise}; kept "
+            f"{len(bn_seen)} bn_stats signatures, {len(conf_calls)} confusion launches")
+        # the SIGKILL may fall between a call's bn_stats launch and its
+        # elementwise one
+        unpaired = (min(max(bn_launches - sum(elementwise), 0), 1)
+                    if label.startswith("phase A") else 0)
+        _engaged(f"13b {label}", bn_launches - unpaired, elementwise)
         if label.startswith("phase A"):
             ok = (bn_launches >= per_step * plan["seam_step"] and conf_launches >= 1
                   and len(conf_calls) >= conf_launches - 1)
@@ -3340,7 +3508,7 @@ def phase_lifecycle(card: dict, rows: dict, dev: torch.device, root: Path) -> tu
             "assessment_change in process", assessment_change.main,
             lifecycle_run.assessment_argv(args, "siamese", out, data))
         torch.cuda.synchronize()
-        conf_launches = _counts()[1]
+        conf_launches = _counts("13b assessment in process")[1]
     _check_conf_launches(rows, dev, conf_calls, "13b assessment in process")
     conf_total += conf_launches
     cli_line, here_line = report["assessment_tail"][-1], text.strip().splitlines()[-1]
@@ -3393,7 +3561,7 @@ def _counted(label: str, main, argv: list, keep_bn=None, keep_conf=None) -> tupl
         _reset_counts()
         lines = _drive(label, main, argv)
         torch.cuda.synchronize()
-        bn_launches, conf_launches, _ = _counts()
+        bn_launches, conf_launches, _ = _counts(label)
         # ---------------------------------------------------------------------
     return lines, bn_launches, conf_launches
 
@@ -3611,7 +3779,7 @@ def phase_measure(card: dict, rows: dict, dev: torch.device, root: Path,
                                                            str(accum)])):
             bench_remat_memory.analyze(label, rargs.opts + extra, rargs.crop,
                                        rargs.batch, rargs.regime, dev)
-        bn_check = _counts()[0]
+        bn_check = _counts("14e bench_remat_memory")[0]
     _check_bn_launches(rows, dev, bn_seen, "14e bench_remat_memory")
     bn_total += bn_ablate + bn_remat + bn_check
     del bn_seen
@@ -3648,7 +3816,8 @@ def _dryrun_launches(rows: dict, dev: torch.device, results: dict, who: str,
     bn_stats and confusion launch held against the plain versions
     (:func:`_check_bn_launches`, :func:`_check_conf_launches`), each
     training case's bn_stats launches against ``DRYRUN_STEPS`` steps of its
-    model. Returns (bn_stats, confusion) launches."""
+    model and its elementwise kernels' against those (:func:`_engaged`).
+    Returns (bn_stats, confusion) launches."""
     bn = conf = 0
     for name, res in results.items():
         path = f"dry run {name} ({who})"
@@ -3662,6 +3831,7 @@ def _dryrun_launches(rows: dict, dev: torch.device, results: dict, who: str,
             if res["launches"] != want:
                 raise AssertionError(f"{path}: {res['launches']} bn_stats launches, "
                                      f"expected {want}")
+            _engaged(path, res["launches"], res["elementwise"])
             bn += res["launches"]
         elif "f1" in res:
             conf += res["launches"]
@@ -3761,6 +3931,7 @@ def main() -> None:
                     phase_kernel(card)))
     rows["bn_stats"] = phase_bn_stats(card)
     rows["conv3x3"] = phase_conv3x3(card)
+    rows["batch_norm_apply"], rows["batch_norm_dx"] = phase_batch_norm(card)
     dev = torch.device("cuda")
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     maker = None
@@ -3823,6 +3994,12 @@ def main() -> None:
             maker.terminate()
             maker.join()
         tmp.cleanup()
+    rows["batch_norm_apply"]["launches"] = ELEMENTWISE["apply"]
+    rows["batch_norm_dx"]["launches"] = ELEMENTWISE["dx"]
+    log(f"train-mode BatchNorm over phases 5-15: batch_norm_apply "
+        f"{ELEMENTWISE['apply']} + batch_norm_dx {ELEMENTWISE['dx']} launches, "
+        f"bn_stats {ELEMENTWISE['bn_stats']} in the same counts: every call took "
+        f"its elementwise kernel")
     log(f"kernels: {json.dumps(list(rows))}; chip_smoke wall "
         f"{time.perf_counter() - t_start:.1f} s (builds included) on {card['smi']}")
     print(json.dumps({"kernels": list(rows.values())}))

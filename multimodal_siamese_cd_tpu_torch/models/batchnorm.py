@@ -19,7 +19,10 @@ grammar and :func:`..weights.state_dict_from_jax` are unchanged.
   order, cast to the input dtype.
 
 The forward sums come from ``bn_stats(x, x)``, the backward's from
-``bn_stats(dy, x)``; on the card both launch the CUDA kernel. A module
+``bn_stats(dy, x)``; the per-element work, the normalisation and ``dx``,
+from ``batch_norm_apply`` and ``batch_norm_dx`` (:mod:`..ops.batch_norm`)
+over per-channel vectors computed here. On the card all three launch their
+CUDA kernels, one launch of each kernel per call. A module
 called twice in one step (the Siamese encoder runs on both dates) updates
 its running statistics twice, in call order, as flax does. While
 ``recomputing`` is set (the backward's second forward of a checkpointed
@@ -59,12 +62,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batch_norm import batch_norm_apply, batch_norm_dx
 from ..ops.bn_stats import bn_stats
 from ..parallel import group, halo
-
-
-def _per_channel(v: torch.Tensor) -> torch.Tensor:
-    return v[None, :, None, None]
 
 
 class _TrainBatchNorm(torch.autograd.Function):
@@ -90,9 +90,7 @@ class _TrainBatchNorm(torch.autograd.Function):
         mean = s1 / n
         var = torch.clamp_min(s2 / n - mean * mean, 0.0)
         rstd = torch.rsqrt(var + eps)
-        y = x.to(torch.float32, copy=True)
-        y.sub_(_per_channel(mean)).mul_(_per_channel(rstd * weight))
-        y.add_(_per_channel(bias))
+        y = batch_norm_apply(x, mean, rstd * weight, bias)
         if running_mean is not None:
             with torch.no_grad():
                 running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
@@ -100,7 +98,7 @@ class _TrainBatchNorm(torch.autograd.Function):
         ctx.save_for_backward(x, weight, mean, rstd)
         ctx.n = n
         ctx.reduce = reduce
-        return y.to(x.dtype)
+        return y
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
@@ -120,11 +118,8 @@ class _TrainBatchNorm(torch.autograd.Function):
         else:
             dw_all = dweight
         # dx = weight·rstd·(dy - Σdy/N - x̂·dweight/N), x̂ = (x - mean)·rstd
-        t = x.to(torch.float32, copy=True)
-        t.sub_(_per_channel(mean)).mul_(_per_channel(rstd * dw_all / n))
-        dx = dy.to(torch.float32, copy=True)
-        dx.sub_(_per_channel(s1 / n)).sub_(t).mul_(_per_channel(weight * rstd))
-        return dx.to(dy.dtype), dweight, dbias, None, None, None, None, None
+        dx = batch_norm_dx(dy, x, mean, rstd * dw_all / n, s1 / n, weight * rstd)
+        return dx, dweight, dbias, None, None, None, None, None
 
 
 def _summed_over_ranks(s1: torch.Tensor, s2: torch.Tensor, process_group=None):

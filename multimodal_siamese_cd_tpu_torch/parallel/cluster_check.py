@@ -166,12 +166,15 @@ def _keep_first_launches(kept: list):
 @contextlib.contextmanager
 def _bn_launches(case: dict, device, kept: list):
     """Count the bn_stats launches of the block (``out["launches"]`` once
-    it closes), with ``case["keep_bn"]`` the first launch of each
+    it closes) and those of train-mode BatchNorm's elementwise kernels
+    (``out["elementwise"]``: batch_norm_apply's, batch_norm_dx's), with
+    ``case["keep_bn"]`` the first launch of each
     signature kept in ``kept`` (:func:`_keep_first_launches`), and with
     ``case["dropout"]`` False siamunet_diff's spatial dropout the identity
     (its draws are each package's own, so a step held against the JAX
     package's runs without them)."""
     from ..models import batchnorm, networks
+    from ..ops.batch_norm import batch_norm_apply, batch_norm_dx
     from ..ops.bn_stats import bn_stats
 
     out: dict = {}
@@ -182,10 +185,11 @@ def _bn_launches(case: dict, device, kept: list):
         networks.spatial_dropout = lambda x, p, generator, rows=None: x
     try:
         _sync(device)
-        bn_stats.launches = 0
+        bn_stats.launches = batch_norm_apply.launches = batch_norm_dx.launches = 0
         yield out
         _sync(device)
         out["launches"] = bn_stats.launches
+        out["elementwise"] = [batch_norm_apply.launches, batch_norm_dx.launches]
     finally:
         batchnorm.bn_stats, networks.spatial_dropout = wrapper, dropout
 
@@ -210,7 +214,8 @@ def _step_case(case: dict, device) -> dict:
     batch ``stack`` / ``is_labeled`` (or, without ``stack``, a batch drawn
     from ``synthetic``: :func:`_synthetic_batch`), this rank feeding its
     rows; the metrics of the last, the (summed) gradients, BatchNorm
-    buffers and parameters after it, the bn_stats launches.
+    buffers and parameters after it, the bn_stats launches and the
+    elementwise kernels' (:func:`_bn_launches`).
     ``keep_bn``: also the first launch of each signature
     (:func:`_keep_first_launches`); ``timed_steps``: then the median host
     time of that many more steps and, over one more, the host time inside
@@ -249,6 +254,7 @@ def _step_case(case: dict, device) -> dict:
         "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
         "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
         "launches": counted["launches"],
+        "elementwise": counted["elementwise"],
         "bn_kept": kept,
         "param_abs_sum": float(sum(p.detach().abs().double().sum()
                                    for p in model.parameters())),
@@ -315,8 +321,9 @@ def _scanned_case(case: dict, device) -> dict:
     rows of each step's batch; ``eager_steps``: the same K steps through
     ``make_train_step`` one at a time, their metrics reduced as the window
     reduces them (the window's reference). The window's metrics and mode,
-    the BatchNorm buffers after it, the bn_stats launches (``keep_bn``: the
-    first of each signature)."""
+    the BatchNorm buffers after it, the bn_stats launches and the
+    elementwise kernels' (``keep_bn``: the first bn_stats launch of each
+    signature)."""
     from .. import train_lib
 
     cfg = case_cfg(case)
@@ -337,7 +344,8 @@ def _scanned_case(case: dict, device) -> dict:
             metrics, mode = window(stacks, labs, 0), window.mode
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "mode": mode,
             "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()},
-            "launches": counted["launches"], "bn_kept": kept}
+            "launches": counted["launches"], "elementwise": counted["elementwise"],
+            "bn_kept": kept}
 
 
 @contextlib.contextmanager
@@ -555,6 +563,7 @@ def _train_case(case: dict, device) -> dict:
     """``trainers.run_training`` on the case's config, logging to
     ``{PATHS.OUTPUT}/logs`` from rank 0 alone, as the training CLIs do."""
     from .. import trainers, wandb_compat
+    from ..ops.batch_norm import batch_norm_apply, batch_norm_dx
     from ..ops.bn_stats import bn_stats
     from . import group
 
@@ -562,12 +571,13 @@ def _train_case(case: dict, device) -> dict:
     if group.rank() == 0:
         wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl",
                           out_dir=cfg.PATHS.OUTPUT)
-    bn_stats.launches = 0
+    bn_stats.launches = batch_norm_apply.launches = batch_norm_dx.launches = 0
     try:
         trainers.run_training(cfg, case["regime"], device=device)
     finally:
         wandb_compat.finish()
-    return {"launches": bn_stats.launches}
+    return {"launches": bn_stats.launches,
+            "elementwise": [batch_norm_apply.launches, batch_norm_dx.launches]}
 
 
 def _errors_case(case: dict, device) -> dict:
