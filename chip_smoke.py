@@ -174,8 +174,10 @@ script exits non-zero:
      whatevernet semi-supervised (a window with an all-labeled and an
      all-unlabeled batch: presence weights and window means);
      c. ``trainers.run_training`` with ``STEPS_PER_EXECUTION 4`` to its first
-     log window against a k = 1 run (``GRAPH_LIMITS['metrics']``), and the
-     ``auto`` probe's milliseconds and k.
+     log window against a run at the shipped ``auto`` (k = 1 on the card),
+     both replaying one CUDA graph: the logged windows
+     (``GRAPH_LIMITS['metrics']``) and the epoch-1 checkpoints bit for bit,
+     and the ``auto`` probe's milliseconds and k.
 13. the training lifecycle through the port's CLIs (phase 13's datasets
      are written by a process of their own while phase 4's split is
      written, after phase 3's host-timed measurements):
@@ -234,6 +236,12 @@ script exits non-zero:
      the BatchNorm sums 2 x 8C over the forward's BatchNorm calls and the
      global rows n x batch x (heads + 3) x crop^2 x 4 plus the label mask,
      exactly.
+
+Every ``trainers.run_training`` on the card in a world of one rank
+(phases 5-8, 9c, 10b, 12c and 13) runs its steps through one window's CUDA
+graph (:func:`_graph_run`): the wrappers count the first window's steps,
+run eagerly, and the capture, (k + 1) x a step's launches; the replays
+launch no wrapper.
 
 Wherever phases 5-15 count bn_stats launches, in this process, a child
 or a rank, they count the train-mode BatchNorm's elementwise kernels too:
@@ -541,12 +549,11 @@ def phase_build() -> None:
     the C compiler), all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    kernels = {"confusion": confusion._kernel, "bn_stats": bn_stats._kernel,
-               "conv3x3": conv3x3._kernel, "batch_norm": batch_norm._kernels}
+    kernels = ("confusion", "bn_stats", "conv3x3", "batch_norm")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         native = pool.submit(build_native.build)
-        for fut in [pool.submit(fn) for fn in kernels.values()] + [native]:
+        for fut in [pool.submit(_build.load_library, name) for name in kernels] + [native]:
             fut.result()
     log(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s "
         f"wall, into {_build.BUILD_DIR} (route: nvcc -shared + ctypes)")
@@ -1322,6 +1329,33 @@ def _counts(label: str) -> tuple:
             confusion.strict_confusion_counts.launches)
 
 
+@contextlib.contextmanager
+def _trainer_windows():
+    """The windows ``trainers.run_training`` makes (its only way to run a
+    step), kept as it makes them."""
+    made = []
+    real = train_lib.make_scanned_train_step
+
+    def keep(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    with mock.patch.object(train_lib, "make_scanned_train_step", keep):
+        yield made
+
+
+def _graph_run(label: str, made: list) -> str:
+    """Raise unless a ``run_training`` on the card made one window and it
+    ran as a CUDA graph: its first call ran eagerly and captured the step,
+    every later call replayed it (the wrappers count only the first call's
+    steps and the capture: (k + 1) x a step's launches). Returns the
+    capture's host seconds for the log."""
+    if len(made) != 1 or made[0].mode != "graph" or made[0].graph.graph is None:
+        raise AssertionError(f"{label}: the trainer's window did not run as a "
+                             f"captured CUDA graph ({[w.mode for w in made]})")
+    return f"one CUDA graph, captured in {made[0].graph.capture_s:.3f} s host"
+
+
 def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
                 aois: list) -> None:
     out = root / "train_out"
@@ -1341,7 +1375,8 @@ def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
-        trainers.run_training(cfg, "supervised", device=dev)
+        with _trainer_windows() as made:
+            trainers.run_training(cfg, "supervised", device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         bn_launches, conf_launches, _ = _counts("phase 5 run_training")
@@ -1354,14 +1389,15 @@ def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
     steps = windows[-1]["step"] if windows else 0
     rows["bn_stats"]["launches"] = bn_launches
     expect = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)   # forward + backward
-    log(f"run_training: {steps} steps in {wall:.1f} s wall (with its evals); "
-        f"launches bn_stats {bn_launches} ({bn_launches / max(steps, 1):.1f} per "
-        f"step, expected {expect}), confusion {conf_launches}; peak "
-        f"device memory {peak_run / 2**30:.2f} GiB (training steps and eval "
-        f"groups)")
-    if bn_launches != expect * steps or steps == 0:
+    graph = _graph_run("phase 5", made)
+    log(f"run_training: {steps} steps in {wall:.1f} s wall (with its evals), "
+        f"{graph}; launches bn_stats {bn_launches} (the eager first step's and "
+        f"the capture's, expected 2 x {expect}), confusion {conf_launches}; peak "
+        f"device memory {peak_run / 2**30:.2f} GiB (training steps, the graph's "
+        f"pool and eval groups)")
+    if bn_launches != 2 * expect or steps < 2:
         raise AssertionError(f"bn_stats launched {bn_launches} times in {steps} "
-                             f"steps, expected {expect} per step")
+                             f"steps, expected 2 x {expect}")
     if conf_launches < 1:
         raise AssertionError("model_evaluation never launched the confusion kernel")
     patches = []
@@ -1434,16 +1470,18 @@ def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
     wandb_compat.init(name=cfg.NAME, config=cfg, mode="jsonl", out_dir=out)
     try:
         _reset_counts()
-        trainers.run_training(cfg, "supervised", device=dev)
+        with _trainer_windows() as made:
+            trainers.run_training(cfg, "supervised", device=dev)
         torch.cuda.synchronize()
         bn_launches, conf_launches, _ = _counts("phase 5 resume")
     finally:
         wandb_compat.finish()
     last = _records(out, cfg.NAME)[-1]
-    log(f"resume 'latest' + one step (DEBUG): bn_stats launches {bn_launches}, "
-        f"confusion {conf_launches}; last eval at step {last['step']} (epoch "
-        f"{last['epoch']:.4f})")
-    if bn_launches != expect or last["step"] != steps + 1:
+    graph = _graph_run("phase 5 resume", made)
+    log(f"resume 'latest' + one step (DEBUG): {graph}; bn_stats launches "
+        f"{bn_launches} (the step's and the capture's), confusion {conf_launches}; "
+        f"last eval at step {last['step']} (epoch {last['epoch']:.4f})")
+    if bn_launches != 2 * expect or last["step"] != steps + 1:
         raise AssertionError("the resumed run did not take exactly one step "
                              "from the checkpoint's")
 
@@ -1478,7 +1516,8 @@ def phase_dualtask(card: dict, rows: dict, dev: torch.device, root: Path,
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
-        trainers.run_training(cfg, "dualtask", device=dev)
+        with _trainer_windows() as made:
+            trainers.run_training(cfg, "dualtask", device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         bn_launches, conf_launches, strict_launches = _counts("phase 6 run_training")
@@ -1490,13 +1529,15 @@ def phase_dualtask(card: dict, rows: dict, dev: torch.device, root: Path,
     windows = [r for r in records if "train_time" in r]
     steps = windows[-1]["step"] if windows else 0
     expect = 2 * bn_per_step(cfg.MODEL.TOPOLOGY, decoder_calls=3)   # fwd + bwd
+    graph = _graph_run("phase 6", made)
     log(f"run_training dualtask: {steps} steps in {wall:.1f} s wall (with its "
-        f"evals); launches bn_stats {bn_launches} ({bn_launches / max(steps, 1):.1f} "
-        f"per step, expected {expect}), confusion {conf_launches}, strict "
-        f"{strict_launches}; peak device memory {peak_run / 2**30:.2f} GiB")
-    if bn_launches != expect * steps or steps == 0:
+        f"evals), {graph}; launches bn_stats {bn_launches} (the eager first "
+        f"step's and the capture's, expected 2 x {expect}), confusion "
+        f"{conf_launches}, strict {strict_launches}; peak device memory "
+        f"{peak_run / 2**30:.2f} GiB")
+    if bn_launches != 2 * expect or steps < 2:
         raise AssertionError(f"bn_stats launched {bn_launches} times in {steps} "
-                             f"steps, expected {expect} per step")
+                             f"steps, expected 2 x {expect}")
     if conf_launches < 1:
         raise AssertionError("model_evaluation never launched the confusion kernel")
     patches = []
@@ -1800,7 +1841,8 @@ def phase_semisup(card: dict, rows: dict, dev: torch.device, root: Path,
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             t0 = time.perf_counter()
-            trainers.run_training(cfg, "semisupervised", device=dev)
+            with _trainer_windows() as made:
+                trainers.run_training(cfg, "semisupervised", device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             bn_launches, conf_launches, _ = _counts("phase 7 run_training")
@@ -1815,13 +1857,14 @@ def phase_semisup(card: dict, rows: dict, dev: torch.device, root: Path,
     expect = 2 * bn_per_step(topology, streams=2)   # forward + backward
     rows["bn_stats"]["launches"] = bn_launches
     rows["confusion_counts"]["launches"] = conf_launches
+    graph = _graph_run("phase 7", made)
     log(f"run_training semisupervised: {steps} steps in {wall:.1f} s wall (with "
-        f"its evals); launches bn_stats {bn_launches} ({bn_launches / max(steps, 1):.1f} "
-        f"per step, expected {expect}), confusion {conf_launches}; peak device "
-        f"memory {peak_run / 2**30:.2f} GiB")
-    if bn_launches != expect * steps or steps != 48:
+        f"its evals), {graph}; launches bn_stats {bn_launches} (the eager first "
+        f"step's and the capture's, expected 2 x {expect}), confusion "
+        f"{conf_launches}; peak device memory {peak_run / 2**30:.2f} GiB")
+    if bn_launches != 2 * expect or steps != 48:
         raise AssertionError(f"bn_stats launched {bn_launches} times in {steps} "
-                             f"steps, expected {expect} per step over 48")
+                             f"steps, expected 2 x {expect} over 48 steps")
     if conf_launches < 1:
         raise AssertionError("model_evaluation never launched the confusion kernel")
     _check_path_launches(rows, dev, bn_seen, conf_calls)
@@ -1964,7 +2007,8 @@ def phase_siamunet_diff(card: dict, rows: dict, dev: torch.device, root: Path,
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             t0 = time.perf_counter()
-            trainers.run_training(cfg, "supervised", device=dev)
+            with _trainer_windows() as made:
+                trainers.run_training(cfg, "supervised", device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             bn_launches, conf_launches, _ = _counts("phase 8 run_training")
@@ -1975,15 +2019,20 @@ def phase_siamunet_diff(card: dict, rows: dict, dev: torch.device, root: Path,
     records = _records(out, cfg.NAME)
     windows = [r for r in records if "train_time" in r]
     steps = windows[-1]["step"] if windows else 0
+    graph = _graph_run("phase 8", made)
+    # the dropout masks: drawn outside the graph, copied into its inputs
+    draws = len(made[0].graph.dropout.buffers)
     log(f"run_training siamunet_diff: {steps} steps in {wall:.1f} s wall (with "
-        f"its evals); launches bn_stats {bn_launches} ({bn_launches / max(steps, 1):.1f} "
-        f"per step, expected {DIFF_BN_PER_STEP}), confusion {conf_launches}; peak "
+        f"its evals), {graph}, {draws} dropout draws recorded for it; launches "
+        f"bn_stats {bn_launches} (the eager first step's and the capture's, "
+        f"expected 2 x {DIFF_BN_PER_STEP}), confusion {conf_launches}; peak "
         f"device memory {peak_run / 2**30:.2f} GiB")
     expect_steps = TRAIN_AOIS * DIFF_MULTIPLIER // cfg.TRAINER.BATCH_SIZE
-    if bn_launches != DIFF_BN_PER_STEP * steps or steps != expect_steps:
+    if bn_launches != 2 * DIFF_BN_PER_STEP or steps != expect_steps or draws != 29:
         raise AssertionError(f"bn_stats launched {bn_launches} times in {steps} "
-                             f"steps, expected {DIFF_BN_PER_STEP} per step over "
-                             f"{expect_steps}")
+                             f"steps, expected 2 x {DIFF_BN_PER_STEP} over "
+                             f"{expect_steps} steps, or {draws} dropout draws "
+                             f"(expected 29)")
     if conf_launches < 1:
         raise AssertionError("model_evaluation never launched the confusion kernel")
     shapes = {key[0] for key in bn_seen}
@@ -2437,7 +2486,8 @@ def phase_knob_run(card: dict, rows: dict, dev: torch.device, root: Path,
             torch.cuda.synchronize()
             _reset_counts()
             t0 = time.perf_counter()
-            trainers.run_training(cfg, "supervised", device=dev)
+            with _trainer_windows() as made:
+                trainers.run_training(cfg, "supervised", device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             bn_launches, conf_launches, _ = _counts("9c run_training")
@@ -2448,6 +2498,7 @@ def phase_knob_run(card: dict, rows: dict, dev: torch.device, root: Path,
     windows = [r for r in _records(out, cfg.NAME) if "train_time" in r]
     steps = windows[-1]["step"] if windows else 0
     expect = 2 * 2 * bn_per_step(cfg.MODEL.TOPOLOGY)     # two micro-batches
+    graph = _graph_run("9c", made)
     traces = sorted(prof.glob("*.json"))
     thread_loader = TrainLoader(MultimodalCDDataset(cfg, "training"),
                                 cfg.TRAINER.BATCH_SIZE, shuffle=cfg.DATALOADER.SHUFFLE,
@@ -2456,15 +2507,15 @@ def phase_knob_run(card: dict, rows: dict, dev: torch.device, root: Path,
     log(f"run_training, GRAD_ACCUM 2, {cfg.DATALOADER.NUM_WORKER} process loader "
         f"workers, PROFILE_DIR: {steps} steps in {wall:.1f} s wall (with its "
         f"evals; the first batch came {arrivals[0] - t0:.2f} s after the start, "
-        f"the pool's start-up), bn_stats launches {bn_launches} "
-        f"({bn_launches / max(steps, 1):g} "
-        f"per step, expected {expect}), confusion {conf_launches}; window losses "
+        f"the pool's start-up), {graph}; bn_stats launches {bn_launches} (the "
+        f"eager first step's and the capture's, expected 2 x {expect}), "
+        f"confusion {conf_launches}; window losses "
         + ", ".join(f"{r['loss']:.6f}" for r in windows)
         + f"; trace {[f'{t.name} ({t.stat().st_size / 1e6:.1f} MB)' for t in traces]}; "
         f"{len(digests)} process batches == the thread loader's {len(threads)}: "
         f"{digests == threads}")
     if (steps != TRAIN_AOIS * KNOB_MULTIPLIER // cfg.TRAINER.BATCH_SIZE
-            or bn_launches != expect * steps or conf_launches < 1
+            or bn_launches != 2 * expect or conf_launches < 1
             or not all(np.isfinite(r["loss"]) for r in windows)
             or len(traces) != 1 or digests != threads):
         raise AssertionError("the knob run: wrong step or launch count, a "
@@ -2643,7 +2694,8 @@ def phase_nccl(card: dict, rows: dict, dev: torch.device, root: Path,
                     torch.cuda.synchronize()
                     _reset_counts()
                     t0 = time.perf_counter()
-                    trainers.run_training(cfg, "supervised")  # this rank's card
+                    with _trainer_windows() as made:
+                        trainers.run_training(cfg, "supervised")  # this rank's card
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
                     bn_launches, conf_launches, _ = _counts("10b NCCL run_training")
@@ -2670,14 +2722,16 @@ def phase_nccl(card: dict, rows: dict, dev: torch.device, root: Path,
     steps = windows[-1]["step"] if windows else 0
     expect = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)
     ckpts = sorted(p.name for p in (out / "networks").iterdir())
+    graph = _graph_run("10b", made)     # a world of one rank captures the step
     log(f"run_training under MSCD_DISTRIBUTED=1, backend {backend}, world size "
         f"{world_size}: {steps} steps in {wall:.1f} s wall (with its evals), "
-        f"bn_stats launches {bn_launches} ({bn_launches / max(steps, 1):g} per "
-        f"step, expected {expect}), confusion {conf_launches}; window losses "
+        f"{graph}; bn_stats launches {bn_launches} (the eager first step's and "
+        f"the capture's, expected 2 x {expect}), confusion {conf_launches}; window "
+        f"losses "
         + ", ".join(f"{r['loss']:.6f}" for r in windows) + f"; checkpoints {ckpts}")
     if (backend != "nccl" or world_size != 1
             or steps != TRAIN_AOIS * NCCL_MULTIPLIER // cfg.TRAINER.BATCH_SIZE
-            or bn_launches != expect * steps or conf_launches < 1
+            or bn_launches != 2 * expect or conf_launches < 1
             or len(windows) != steps // NCCL_LOG_FREQ
             or not all(np.isfinite(r["loss"]) for r in windows)
             or ckpts != [f"{cfg.NAME}_checkpoint1.pt"]):
@@ -3107,8 +3161,7 @@ def _window_means(entries: list) -> dict:
     (``trainers._window_summary``, as the trainer reduces them)."""
     sets = {key: [e[key] for e in entries] for key in trainers._REGIMES[
         "semisupervised"]["keys"]}
-    counts = [tuple(e[key] for key in trainers._LABEL_KEYS if key in e)
-              for e in entries]
+    counts = [tuple(e[key] for key in trainers._LABEL_KEYS) for e in entries]
     return trainers._window_summary(sets, counts, True)
 
 
@@ -3178,16 +3231,16 @@ def phase_steps(card: dict, rows: dict, dev: torch.device, root: Path,
         torch.cuda.empty_cache()
         t2 = time.perf_counter()
 
-        # 12c: run_training through the trainer, k = 4 against k = 1
+        # 12c: run_training through the trainer, k = 4 against the shipped
+        # auto (k = 1 on the card): two graph runs
         ms = trainers.measure_dispatch_latency_ms(device=dev)
         runs = {}
-        for k in (STEPS_K, 1):
+        for k in (STEPS_K, "auto"):
             run_out = root / f"steps_out_k{k}"
             run_out.mkdir()
             run_cfg = _train_cfg(root, run_out, aois)
             run_cfg.DATALOADER.TRAINING_MULTIPLIER = STEPS_MULTIPLIER
             run_cfg.LOG_FREQ = STEPS_LOG_FREQ
-            run_cfg.SAVE_CHECKPOINTS = []
             run_cfg.TRAINER.STEPS_PER_EXECUTION = k
             wandb_compat.init(name=run_cfg.NAME, config=run_cfg, mode="jsonl",
                               out_dir=run_out)
@@ -3200,7 +3253,7 @@ def phase_steps(card: dict, rows: dict, dev: torch.device, root: Path,
                 torch.cuda.synchronize()
                 _reset_counts()
                 w0 = time.perf_counter()
-                with contextlib.redirect_stdout(printed):
+                with contextlib.redirect_stdout(printed), _trainer_windows() as made:
                     trainers.run_training(run_cfg, "supervised", device=dev)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - w0
@@ -3211,35 +3264,50 @@ def phase_steps(card: dict, rows: dict, dev: torch.device, root: Path,
             sys.stdout.write(printed.getvalue())
             windows_logged = [r for r in _records(run_out, run_cfg.NAME)
                               if "train_time" in r]
-            runs[k] = (windows_logged, printed.getvalue(), wall, bn_launches)
-            log(f"  12c k = {k}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-                f"GiB allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved "
+            ckpt = torch.load(checkpoints.checkpoint_file(run_cfg, 1), map_location="cpu",
+                              weights_only=True)
+            runs[k] = (windows_logged, printed.getvalue(), wall, bn_launches, ckpt)
+            log(f"  12c k = {k}: {_graph_run(f'12c k = {k}', made)}; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+                f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved "
                 f"(a graph's pool included) ({card['smi']})")
             bn_total, conf_total = bn_total + bn_launches, conf_total + conf_launches
         steps_per_epoch = TRAIN_AOIS * STEPS_MULTIPLIER // cfg.TRAINER.BATCH_SIZE
         k_auto = trainers.auto_steps_per_execution(STEPS_LOG_FREQ, steps_per_epoch, ms)
-        (w_k, printed_k, wall_k, bn_k), (w_1, _, wall_1, _) = runs[STEPS_K], runs[1]
+        (w_k, printed_k, wall_k, bn_k, ckpt_k), (w_1, printed_1, wall_1, bn_1, ckpt_1) = (
+            runs[STEPS_K], runs["auto"])
         rel = (max(_window_diffs({"loss": a["loss"]}, {"loss": b["loss"]})["loss"]
                    for a, b in zip(w_k, w_1)) if w_k and len(w_k) == len(w_1)
                else float("inf"))
+        same_ckpt = ckpt_k["step"] == ckpt_1["step"] and all(
+            torch.equal(v, ckpt_1["network"][key]) for key, v in ckpt_k["network"].items())
+        opt_k, opt_1 = ckpt_k["optimizer"], ckpt_1["optimizer"]
+        same_ckpt = same_ckpt and opt_k["param_groups"] == opt_1["param_groups"] and all(
+            torch.equal(v, opt_1["state"][i][key])
+            for i, state in opt_k["state"].items() for key, v in state.items())
         per_step = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)
         log(f"  12c run_training STEPS_PER_EXECUTION {STEPS_K}: windows "
-            f"{[(r['step'], round(r['loss'], 7)) for r in w_k]} in {wall_k:.1f} s "
-            f"wall (evals included), k = 1: {[(r['step'], round(r['loss'], 7)) for r in w_1]} "
+            f"{[(r['step'], r['loss']) for r in w_k]} in {wall_k:.1f} s "
+            f"wall (evals included), auto: {[(r['step'], r['loss']) for r in w_1]} "
             f"in {wall_1:.1f} s; largest relative loss difference {rel:.3g} (limit "
-            f"{GRAPH_LIMITS['metrics']}); train_time k = {STEPS_K} "
-            f"{w_k[0]['train_time'] if w_k else float('nan'):.3f} s, k = 1 "
+            f"{GRAPH_LIMITS['metrics']}: the k = {STEPS_K} window means its windows' "
+            f"means); epoch-1 checkpoints bit-equal (step, weights, buffers, AdamW "
+            f"state): {same_ckpt}; train_time k = {STEPS_K} "
+            f"{w_k[0]['train_time'] if w_k else float('nan'):.3f} s, auto "
             f"{w_1[0]['train_time'] if w_1 else float('nan'):.3f} s; bn_stats launches "
-            f"the wrapper counted {bn_k} (expected {(STEPS_K + 1) * per_step}: the "
-            f"first window's eager steps and the capture); auto's dispatch probe "
-            f"{ms:.4f} ms -> k = {k_auto} at LOG_FREQ {STEPS_LOG_FREQ}, "
-            f"{steps_per_epoch} steps/epoch ({card['smi']})")
+            f"the wrapper counted {bn_k} and {bn_1} (expected {(STEPS_K + 1) * per_step} "
+            f"and {2 * per_step}: the first window's eager steps and the capture); "
+            f"auto's dispatch probe {ms:.4f} ms -> k = {k_auto} at LOG_FREQ "
+            f"{STEPS_LOG_FREQ}, {steps_per_epoch} steps/epoch ({card['smi']})")
         if (rel > GRAPH_LIMITS["metrics"] or [r["step"] for r in w_k] != [STEPS_LOG_FREQ]
+                or [r["step"] for r in w_1] != [STEPS_LOG_FREQ] or not same_ckpt
                 or f"STEPS_PER_EXECUTION={STEPS_K}: {STEPS_K} steps per window, one "
                    f"CUDA graph" not in printed_k
-                or bn_k != (STEPS_K + 1) * per_step):
-            raise AssertionError("12c: the k = 4 run's logged window is off the k = 1 "
-                                 "run's, or it did not run as a CUDA graph")
+                or "STEPS_PER_EXECUTION" in printed_1
+                or bn_k != (STEPS_K + 1) * per_step or bn_1 != 2 * per_step):
+            raise AssertionError("12c: the k = 4 run's logged window or checkpoint is "
+                                 "off the auto run's, or auto did not take k = 1, or a "
+                                 "run did not replay one CUDA graph")
         log(f"phase 12: {time.perf_counter() - t0:.1f} s wall (12a {t1 - t0:.1f} s, "
             f"12b {t2 - t1:.1f} s, 12c {time.perf_counter() - t2:.1f} s)")
     finally:
@@ -3314,7 +3382,8 @@ def phase_convergence(card: dict, rows: dict, dev: torch.device, root: Path) -> 
         _reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed), \
-                mock.patch.dict(os.environ, wandb_compat.SINK_ENV):
+                mock.patch.dict(os.environ, wandb_compat.SINK_ENV), \
+                _trainer_windows() as made:
             train_supervised.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3329,11 +3398,12 @@ def phase_convergence(card: dict, rows: dict, dev: torch.device, root: Path) -> 
     steps_per_epoch = len(convergence_run.TRAIN) * args.multiplier // batch
     steps = steps_per_epoch * args.epochs
     expect = 2 * bn_per_step(cfg.MODEL.TOPOLOGY)
-    log(f"  {steps} steps in {wall:.1f} s wall (evaluations included); launches "
-        f"bn_stats {bn_launches} (expected {expect} a step), confusion "
-        f"{conf_launches}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if bn_launches != expect * steps or conf_launches < 1:
+    graph = _graph_run("13a", made)
+    log(f"  {steps} steps in {wall:.1f} s wall (evaluations included), {graph}; "
+        f"launches bn_stats {bn_launches} (the eager first step's and the "
+        f"capture's, expected 2 x {expect}), confusion {conf_launches}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if bn_launches != 2 * expect or conf_launches < 1:
         raise AssertionError("13a: the run's bn_stats or confusion launches are off")
     _check_path_launches(rows, dev, bn_seen, conf_calls, path="13a convergence")
     del bn_seen, conf_calls
@@ -3470,7 +3540,6 @@ def phase_lifecycle(card: dict, rows: dict, dev: torch.device, root: Path) -> tu
         raise AssertionError(f"13b: lifecycle_run returned {rc}, children {children}")
 
     bn_total, conf_total = 0, 0
-    resumed_steps = plan["steps_per_epoch"] * (args.epochs - plan["resume_epoch"])
     for (module, watch_dir), label in zip(children, ("phase A (killed)", "phase B (resumed)",
                                                      "assessment_change")):
         bn_launches, conf_launches, elementwise, bn_seen, conf_calls = _watched(
@@ -3483,11 +3552,13 @@ def phase_lifecycle(card: dict, rows: dict, dev: torch.device, root: Path) -> tu
         unpaired = (min(max(bn_launches - sum(elementwise), 0), 1)
                     if label.startswith("phase A") else 0)
         _engaged(f"13b {label}", bn_launches - unpaired, elementwise)
+        # each training process: its first step eagerly and the capture, then
+        # replays (the SIGKILL comes long after the capture)
         if label.startswith("phase A"):
-            ok = (bn_launches >= per_step * plan["seam_step"] and conf_launches >= 1
+            ok = (bn_launches == 2 * per_step and conf_launches >= 1
                   and len(conf_calls) >= conf_launches - 1)
         elif label.startswith("phase B"):
-            ok = (bn_launches == per_step * resumed_steps
+            ok = (bn_launches == 2 * per_step
                   and len(conf_calls) == conf_launches >= 1)
         else:
             ok = bn_launches == 0 and len(conf_calls) == conf_launches >= 1

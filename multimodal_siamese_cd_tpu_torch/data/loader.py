@@ -239,10 +239,7 @@ def group_batches(iterator: Iterable[dict], k: int) -> Iterator[dict]:
     multi-step execution (:func:`..train_lib.make_scanned_train_step`; the
     JAX package's ``group_batches``). Array keys gain a leading axis;
     metadata keys become lists. A trailing partial group is dropped (the
-    trainer's execution plan checks divisibility up front). While tracing
-    is on, each super-batch with an ``is_labeled`` key counts its rows
-    (``feed.rows``) and its unlabeled rows (``feed.rows_unlabeled``) under
-    its index."""
+    trainer's execution plan checks divisibility up front)."""
     buf: list[dict] = []
     groups = 0
     for batch in iterator:
@@ -254,10 +251,6 @@ def group_batches(iterator: Iterable[dict], k: int) -> Iterator[dict]:
             for key in buf[0]:
                 vals = [b[key] for b in buf]
                 out[key] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals
-        labs = out.get("is_labeled")
-        if labs is not None:
-            tracing.count("feed.rows", labs.size, groups)
-            tracing.count("feed.rows_unlabeled", labs.size - np.count_nonzero(labs), groups)
         buf = []
         groups += 1
         yield out

@@ -277,8 +277,7 @@ def _measure_wired(model, ds, measurer: MultiThresholdMetric, bucket: int,
     return measurer
 
 
-def run_measurer(model, ds, thresholds, batch_scenes: bool = True,
-                 bucket: int = EVAL_BUCKET, device=None,
+def run_measurer(model, ds, thresholds, bucket: int = EVAL_BUCKET, device=None,
                  shard=None, space: int = 1) -> MultiThresholdMetric:
     """Full-scene confusion accumulation over a dataset.
 
@@ -288,13 +287,11 @@ def run_measurer(model, ds, thresholds, batch_scenes: bool = True,
     :func:`_stream_wire_groups`). Item
     lists and cache-disabled datasets take the item path, which every rank
     runs whole: padded float32 items, scenes of one padded shape stacked
-    into one forward (``batch_scenes=False``: one scene per forward),
-    counts per scene."""
+    into one forward, counts per scene."""
     device = resolve_device(device)
     _check_model_device(model, device)
     measurer = MultiThresholdMetric(thresholds)
-    if batch_scenes and getattr(ds, 'supports_eval_wire', None) is not None \
-            and ds.supports_eval_wire():
+    if getattr(ds, 'supports_eval_wire', None) is not None and ds.supports_eval_wire():
         return _measure_wired(model, ds, measurer, bucket, device, shard, space)
 
     def flush(chunk: list) -> None:
@@ -313,9 +310,6 @@ def run_measurer(model, ds, thresholds, batch_scenes: bool = True,
         x1, valid = pad_to_bucket(item["x_t1"], bucket)
         x2, _ = pad_to_bucket(item["x_t2"], bucket)
         y, _ = pad_to_bucket(item["y_change"], bucket)
-        if not batch_scenes:
-            flush([(x1, x2, y, valid)])
-            continue
         group = pending.setdefault(x1.shape, [])
         group.append((x1, x2, y, valid))
         if len(group) >= eval_group_limit(x1.shape):

@@ -12,7 +12,8 @@ seconds. Sources may include the shared headers ``csrc/*.cuh`` (PTX
 wrappers). The library name carries a hash of the source, every header and
 the flags (:func:`library_path`), so an edited source or header is rebuilt
 and a stale library is never loaded. A build or load failure raises;
-nothing falls back to a plain version.
+nothing falls back to a plain version. Every wrapper launches through
+:func:`launch`, which also declares each entry point's ctypes signature.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import time
 import uuid
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()          # guards _locks
 _locks: dict = {}                 # name -> lock: kernels build in parallel
 _loaded: dict = {}
+_entries: dict = {}               # (library, symbol) -> declared entry point
 # name -> {"seconds": build wall time (0.0 when the library was already
 # built), "log": nvcc's output (ptxas register / shared-memory report)}
 BUILD_INFO: dict = {}
@@ -94,3 +98,25 @@ def load_library(name: str) -> ctypes.CDLL:
         BUILD_INFO[name] = info
         _loaded[name] = lib
         return lib
+
+
+def launch(library: str, symbol: str, argtypes: tuple, device, *args,
+           why: dict | None = None) -> None:
+    """Call the C entry point ``symbol`` of ``csrc/{library}.cu`` with
+    ``args`` and, as its last argument, the current stream of ``device``,
+    with that device current. The entry point is loaded once
+    (:func:`load_library`) and declared with ``argtypes`` (the stream's
+    ``c_void_p`` last) and ``restype`` ``c_int``: the launch's
+    ``cudaError``. A non-zero return raises ``RuntimeError`` naming
+    ``symbol``, with ``why``'s text for that code where it has one."""
+    fn = _entries.get((library, symbol))
+    if fn is None:
+        fn = getattr(load_library(library), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[library, symbol] = fn
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        text = (why or {}).get(err, f"cudaError {err}")
+        raise RuntimeError(f"{symbol} kernel launch failed: {text}")

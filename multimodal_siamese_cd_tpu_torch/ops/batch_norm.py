@@ -26,31 +26,19 @@ and no fallback: a kernel that fails to build or launch raises.
 
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int, c_longlong, c_void_p
 
 import torch
 
+from . import _build
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-_fns: dict = {}
-
-
-def _kernels() -> dict:
-    """The loaded C entry points, with their ctypes signatures declared."""
-    if not _fns:
-        from ._build import load_library
-
-        lib = load_library("batch_norm")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        shape = [i32, i64, i32, i64, i32, ptr]
-        apply_fn = lib.mscd_batch_norm_apply
-        apply_fn.argtypes = [ptr] * 5 + shape
-        apply_fn.restype = ctypes.c_int
-        dx_fn = lib.mscd_batch_norm_dx
-        dx_fn.argtypes = [ptr] * 7 + shape
-        dx_fn.restype = ctypes.c_int
-        _fns.update(apply=apply_fn, dx=dx_fn)
-    return _fns
+# after the tensors: dtype, rows, channels, plane, width, stream
+_SHAPE_ARGTYPES = (c_int, c_longlong, c_int, c_longlong, c_int, c_void_p)
+# mscd_batch_norm_apply(x, mean, scale, bias, y, ...)
+APPLY_ARGTYPES = (c_void_p,) * 5 + _SHAPE_ARGTYPES
+# mscd_batch_norm_dx(dy, x, mean, a, b, g, dx, ...)
+DX_ARGTYPES = (c_void_p,) * 7 + _SHAPE_ARGTYPES
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -124,33 +112,22 @@ def _launch_shape(out: torch.Tensor, *tensors) -> list:
     return [_DTYPE_CODE[out.dtype], batch * channels, channels, h * w, width]
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def launch_apply(x, mean, scale, bias, y) -> None:
     """Launch the forward kernel on the current stream, writing ``y``.
     Arguments must already be checked, non-empty CUDA tensors;
     ``batch_norm_apply`` is the entry point."""
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernels()["apply"](x.data_ptr(), mean.data_ptr(), scale.data_ptr(),
-                                  bias.data_ptr(), y.data_ptr(),
-                                  *_launch_shape(y, x), stream)
-    _raise_on(err, "batch_norm_apply")
+    _build.launch("batch_norm", "mscd_batch_norm_apply", APPLY_ARGTYPES, x.device,
+                  *(t.data_ptr() for t in (x, mean, scale, bias, y)),
+                  *_launch_shape(y, x))
 
 
 def launch_dx(dy, x, mean, a, b, g, dx) -> None:
     """Launch the input-gradient kernel on the current stream, writing
     ``dx``. Arguments must already be checked, non-empty CUDA tensors;
     ``batch_norm_dx`` is the entry point."""
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernels()["dx"](dy.data_ptr(), x.data_ptr(), mean.data_ptr(),
-                               a.data_ptr(), b.data_ptr(), g.data_ptr(),
-                               dx.data_ptr(), *_launch_shape(dx, dy, x), stream)
-    _raise_on(err, "batch_norm_dx")
+    _build.launch("batch_norm", "mscd_batch_norm_dx", DX_ARGTYPES, x.device,
+                  *(t.data_ptr() for t in (dy, x, mean, a, b, g, dx)),
+                  *_launch_shape(dx, dy, x))
 
 
 def batch_norm_apply(x, mean, scale, bias):

@@ -20,33 +20,20 @@ deterministic: two launches on the same inputs give the same bits.
 
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int, c_longlong, c_void_p
 
 import torch
+
+from . import _build
 
 # elements of one channel that one block reduces (a multiple of the 16-byte
 # vector width of both dtypes); csrc/bn_stats.cu's grid is (chunks, C)
 CHUNK = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-_fn = None
-
-
-def _kernel():
-    """The loaded C entry point, with its ctypes signature declared."""
-    global _fn
-    if _fn is None:
-        from ._build import load_library
-
-        lib = load_library("bn_stats")
-        fn = lib.mscd_bn_stats
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+# mscd_bn_stats(a, b, dtype, batch, channels, plane, chunk, chunks, partial,
+# s1, s2, stream)
+ARGTYPES = (c_void_p, c_void_p, c_int, c_longlong, c_int, c_longlong, c_longlong,
+            c_int, c_void_p, c_void_p, c_void_p, c_void_p)
 
 
 def bn_stats_reference(a: torch.Tensor, b: torch.Tensor,
@@ -101,15 +88,10 @@ def launch(a, b, s1, s2, partial) -> None:
     Arguments must already be checked, contiguous, non-empty CUDA tensors;
     ``bn_stats`` is the entry point."""
     batch, channels, h, w = a.shape
-    plane = h * w
     chunks = partial.numel() // (2 * channels)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _kernel()(a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype], batch,
-                        channels, plane, CHUNK, chunks, partial.data_ptr(),
-                        s1.data_ptr(), s2.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"bn_stats kernel launch failed: cudaError {err}")
+    _build.launch("bn_stats", "mscd_bn_stats", ARGTYPES, a.device, a.data_ptr(),
+                  b.data_ptr(), _DTYPE_CODE[a.dtype], batch, channels, h * w, CHUNK,
+                  chunks, partial.data_ptr(), s1.data_ptr(), s2.data_ptr())
 
 
 bn_stats.launches = 0

@@ -20,35 +20,19 @@ counts are integers, so they stay exact past float32's 2^24 limit.
 
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int, c_longlong, c_void_p
 
 import torch
 
 from ..metrics import confusion_at_thresholds, strict_confusion_counts as _strict
+from . import _build
 
 # the kernel keeps the thresholds in (dynamic) shared memory
 MAX_THRESHOLDS = 4096
-_THREADS = 256          # csrc/confusion.cu kThreads
-_BLOCKS_PER_SM = 8      # 2048 resident threads per SM / _THREADS
-
-_fns: dict = {}
-
-
-def _kernel(strict: bool = False):
-    """The loaded C entry point of one rule, with its ctypes signature
-    declared."""
-    if strict not in _fns:
-        from ._build import load_library
-
-        lib = load_library("confusion")
-        fn = lib.mscd_strict_confusion_counts if strict else lib.mscd_confusion_counts
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[strict] = fn
-    return _fns[strict]
+# mscd_confusion_counts and mscd_strict_confusion_counts(probs, labels,
+# valid, thresholds, n_thresholds, n_scenes, n_pixels, out, stream)
+ARGTYPES = (c_void_p, c_void_p, c_void_p, c_void_p, c_int, c_longlong, c_longlong,
+            c_void_p, c_void_p)
 
 
 def confusion_counts_plain(probs: torch.Tensor, y: torch.Tensor,
@@ -156,19 +140,11 @@ def launch(probs, y, valid, thresholds, out, strict: bool = False) -> None:
     """Launch one rule's kernel on the current stream, adding into ``out``
     ((B, 4, T) int64). Arguments must already be checked, contiguous CUDA
     tensors; ``confusion_counts`` and ``strict_confusion_counts`` are the
-    entry points. Grid: enough blocks to fill every SM, never more than one
-    per 256 pixels of a scene."""
-    n_scenes, n_pixels = probs.shape
-    sms = torch.cuda.get_device_properties(probs.device).multi_processor_count
-    per_scene = max(1, min(-(-n_pixels // _THREADS),
-                           -(-sms * _BLOCKS_PER_SM // n_scenes)))
-    with torch.cuda.device(probs.device):
-        stream = torch.cuda.current_stream(probs.device).cuda_stream
-        err = _kernel(strict)(probs.data_ptr(), y.data_ptr(), valid.data_ptr(),
-                              thresholds.data_ptr(), thresholds.numel(), n_scenes,
-                              n_pixels, out.data_ptr(), per_scene, stream)
-    if err != 0:
-        raise RuntimeError(f"confusion kernel launch failed: cudaError {err}")
+    entry points. The C entry plans the grid."""
+    symbol = "mscd_strict_confusion_counts" if strict else "mscd_confusion_counts"
+    _build.launch("confusion", symbol, ARGTYPES, probs.device, probs.data_ptr(),
+                  y.data_ptr(), valid.data_ptr(), thresholds.data_ptr(),
+                  thresholds.numel(), *probs.shape, out.data_ptr())
 
 
 confusion_counts.launches = 0

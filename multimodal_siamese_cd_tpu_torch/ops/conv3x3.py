@@ -18,15 +18,24 @@ either package calls it.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
+from ctypes import c_int, c_void_p
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
+from . import _build
+
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# mscd_conv3x3(x, wk, y, out_dtype, batch, height, width, cin, cout, tile_w,
+# block_n, m_blocks, a_stages, b_stages, grid, stream)
+ARGTYPES = (c_void_p,) * 3 + (c_int,) * 12 + (c_void_p,)
+# its own return codes besides a cudaError
+_WHY = {-1: "cuTensorMapEncodeTiled is not among the CUDA entry points",
+        -2: "a tensor map was refused",
+        -3: "the kernel does not take the plan of these shapes (conv3x3.plan)"}
 # the tensor maps need rows of whole 16-byte units: 8 bf16 channels
 CHANNEL_MULTIPLE = 8
 
@@ -138,23 +147,7 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
                 out_bytes=out_bytes)
 
 
-_fn = None
 _sms: dict = {}
-
-
-def _kernel():
-    """The loaded C entry point, with its ctypes signature declared."""
-    global _fn
-    if _fn is None:
-        from ._build import load_library
-
-        lib = load_library("conv3x3")
-        fn = lib.mscd_conv3x3
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       *[ctypes.c_int] * 12, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -234,18 +227,10 @@ def launch(xb: torch.Tensor, wk: torch.Tensor, y: torch.Tensor) -> None:
     if dev not in _sms:
         _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     tiling = plan(batch, height, width, cin, cout, y.dtype, _sms[dev])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(xb.data_ptr(), wk.data_ptr(), y.data_ptr(),
-                        _OUT_CODE[y.dtype], batch, height, width, cin, cout,
-                        tiling.tile_w, tiling.block_n, tiling.m_blocks,
-                        tiling.a_stages, tiling.b_stages, tiling.grid, stream)
-    if err != 0:
-        why = {-1: "the driver has no cuTensorMapEncodeTiled",
-               -2: "a tensor map was refused",
-               -3: f"the kernel does not take the plan {tiling}"}
-        raise RuntimeError(f"conv3x3 kernel launch failed: "
-                           f"{why.get(err, f'cudaError {err}')}")
+    _build.launch("conv3x3", "mscd_conv3x3", ARGTYPES, dev, xb.data_ptr(),
+                  wk.data_ptr(), y.data_ptr(), _OUT_CODE[y.dtype], batch, height,
+                  width, cin, cout, tiling.tile_w, tiling.block_n, tiling.m_blocks,
+                  tiling.a_stages, tiling.b_stages, tiling.grid, why=_WHY)
 
 
 conv3x3.launches = 0

@@ -38,6 +38,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 2048 / kThreads;   // resident threads an SM holds
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 8;                   // thresholds counted per pass
 constexpr int kSlots = 2 + 2 * kChunk;      // valid, pos, pred[k], tp[k]
@@ -179,11 +180,23 @@ static bool vectorizable(const float* probs, const unsigned char* labels,
          (reinterpret_cast<uintptr_t>(valid) % 4 == 0);
 }
 
+// Grid: enough blocks to fill every SM of the current device, never more
+// than one per kThreads pixels of a scene.
 template <bool kStrict>
 static int launch(const float* probs, const unsigned char* labels, const unsigned char* valid,
                   const float* thresholds, int n_thresholds, long long n_scenes,
-                  long long n_pixels, long long* out, int blocks_per_scene, void* stream) {
-  const dim3 grid(blocks_per_scene, static_cast<unsigned int>(n_scenes));
+                  long long n_pixels, long long* out, void* stream) {
+  if (n_scenes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long by_pixels = (n_pixels + kThreads - 1) / kThreads;
+  const long long by_sms = (static_cast<long long>(sms) * kBlocksPerSm + n_scenes - 1) / n_scenes;
+  const long long per_scene = by_pixels < by_sms ? by_pixels : by_sms;
+  const dim3 grid(static_cast<unsigned int>(per_scene > 1 ? per_scene : 1),
+                  static_cast<unsigned int>(n_scenes));
   const size_t smem = sizeof(float) * static_cast<size_t>(n_thresholds);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned long long* o = reinterpret_cast<unsigned long long*>(out);
@@ -202,18 +215,16 @@ static int launch(const float* probs, const unsigned char* labels, const unsigne
 extern "C" int mscd_confusion_counts(const float* probs, const unsigned char* labels,
                                      const unsigned char* valid, const float* thresholds,
                                      int n_thresholds, long long n_scenes,
-                                     long long n_pixels, long long* out,
-                                     int blocks_per_scene, void* stream) {
+                                     long long n_pixels, long long* out, void* stream) {
   return launch<false>(probs, labels, valid, thresholds, n_thresholds, n_scenes, n_pixels,
-                       out, blocks_per_scene, stream);
+                       out, stream);
 }
 
 extern "C" int mscd_strict_confusion_counts(const float* probs, const unsigned char* labels,
                                             const unsigned char* valid,
                                             const float* thresholds, int n_thresholds,
                                             long long n_scenes, long long n_pixels,
-                                            long long* out, int blocks_per_scene,
-                                            void* stream) {
+                                            long long* out, void* stream) {
   return launch<true>(probs, labels, valid, thresholds, n_thresholds, n_scenes, n_pixels,
-                      out, blocks_per_scene, stream);
+                      out, stream);
 }

@@ -23,12 +23,6 @@ the enclosing span of the same thread, ``thread`` the thread's name, and
 thread, the span is also a ``torch.profiler.record_function`` of its name,
 so it lies on the trace's timeline beside the device's work (a
 ``record_function`` in another thread would not reach the trace).
-
-``count(name, value, id=None)`` records a quantity beside the spans, such
-as the rows a window of the feed holds: while tracing is on it appends
-``(name, id, value, thread, t)`` to a ring of its own (:func:`counts`),
-``t`` on the spans' clock; while it is off it does nothing, not even read
-the clock.
 """
 
 from __future__ import annotations
@@ -43,7 +37,6 @@ import torch
 RING = 1 << 17
 
 _records: collections.deque = collections.deque(maxlen=RING)
-_counts: collections.deque = collections.deque(maxlen=RING)
 _local = threading.local()
 _enabled = False   # enable() / disable()
 _on = False        # _enabled, or a profiler active in the last caller
@@ -92,14 +85,6 @@ def span(name: str, id=None):
     return _Span(name, id)
 
 
-def count(name: str, value, id=None) -> None:
-    """Record ``value`` under ``name`` while tracing is on (see the
-    module's docstring)."""
-    if _on:
-        _counts.append((name, id, value, threading.current_thread().name,
-                        time.perf_counter()))
-
-
 def follow_profiler() -> None:
     """Turn tracing on while a profiler is active in the calling thread (or
     :func:`enable` holds it on), off otherwise; the program's entry points
@@ -120,24 +105,14 @@ def disable() -> None:
     _enabled = _on = False
 
 
-def _snapshot(ring: collections.deque) -> list:
+def records() -> list:
+    """The spans' ring, oldest first."""
     while True:
         try:
-            return list(ring)
+            return list(_records)
         except RuntimeError:   # another thread appended meanwhile
             continue
 
 
-def records() -> list:
-    """The spans' ring, oldest first."""
-    return _snapshot(_records)
-
-
-def counts() -> list:
-    """The counters' ring, oldest first."""
-    return _snapshot(_counts)
-
-
 def clear() -> None:
     _records.clear()
-    _counts.clear()

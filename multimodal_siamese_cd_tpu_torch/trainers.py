@@ -11,13 +11,14 @@ the checkpoint epochs. Per-regime differences live in ``_REGIMES``.
 The hot loop: host loader (thread or process workers, crop-only wire
 stacks) -> pinned, non-blocking copies on a side stream -> one step (augment
 + forward + backward + AdamW) on the card. Loss scalars (and,
-semi-supervised, each batch's labeled and unlabeled counts) stay on the
-card until a log window closes, then come back in one host fetch.
-``TRAINER.STEPS_PER_EXECUTION`` k > 1 (:func:`_execution_plan`) groups k
-batches into one super-batch and one call: on the card in a world of one
-rank, k replays of a CUDA graph of the step's augmentation, forward and
-backward, each followed by AdamW (:class:`.train_lib.StepGraph`),
-elsewhere k eager steps.
+semi-supervised, each window's labeled and unlabeled counts) stay on the
+card until a log window closes, then come back in one host fetch. Every
+step runs through :func:`.train_lib.make_scanned_train_step`'s window: on
+the card in a world of one rank, a replay of a CUDA graph of the step's
+augmentation, forward and backward, followed by AdamW
+(:class:`.train_lib.StepGraph`), elsewhere the eager step.
+``TRAINER.STEPS_PER_EXECUTION`` k (:func:`_execution_plan`) groups k
+batches into one super-batch, one upload and one call of the window.
 
 Every key of :data:`.config.EXTENSION_KEYS` works, raises, or is printed as
 a declared no-op when the trainer starts (:func:`declare_knobs`).
@@ -217,9 +218,9 @@ def _execution_plan(cfg, model, optimizer, regime: str, loader,
     rank takes rank 0's milliseconds. An explicit integer is honoured,
     except under DEBUG or when it does not divide both steps/epoch and
     LOG_FREQ (then 1). A resume step that is not a multiple of k gives 1,
-    so ``global_step % LOG_FREQ == 0`` stays reachable. With k > 1 the step
-    is :func:`.train_lib.make_scanned_train_step`'s window (the trainer
-    prints how it runs)."""
+    so ``global_step % LOG_FREQ == 0`` stays reachable. At every k the step
+    is :func:`.train_lib.make_scanned_train_step`'s window of k steps (with
+    k > 1 the trainer prints how it runs)."""
     device = resolve_device(device)
     raw = cfg.TRAINER.get('STEPS_PER_EXECUTION', 'auto')
     if isinstance(raw, str) and raw.lower() == 'auto':
@@ -250,9 +251,7 @@ def _execution_plan(cfg, model, optimizer, regime: str, loader,
               f'STEPS_PER_EXECUTION={k}; using 1 so the LOG_FREQ cadence '
               f'stays reachable')
         k = 1
-    if k <= 1:
-        return 1, train_lib.make_train_step(model, optimizer, cfg, regime)
-    return k, train_lib.make_scanned_train_step(model, optimizer, cfg, regime)
+    return max(k, 1), train_lib.make_scanned_train_step(model, optimizer, cfg, regime)
 
 
 def print_run_config(cfg, device_desc: str) -> None:
@@ -316,8 +315,9 @@ def _loader(cfg, grid: group.Grid) -> TrainLoader:
 # trainers.py:352-371):
 #   keys            — device metric scalars accumulated per log window, in
 #                     the order of the JAX package's payload
-#   track_labels    — also collect each batch's (n_labeled, n_notlabeled);
-#                     the window is then reduced by _semisup_window_means,
+#   track_labels    — also collect each window's (n_labeled, n_notlabeled,
+#                     n_lab_steps, n_notlab_steps); the log window is then
+#                     reduced by _semisup_window_means,
 #                     else its payload is the keys' means and
 #                     labeled_percentage 100 (every sample labeled)
 #   debug_test_eval — the DEBUG short-circuit runs a test eval first
@@ -487,17 +487,13 @@ def _run_epochs(cfg, spec, model, optimizer, k, step_fn, loader,
         sets: dict[str, list] = {key: [] for key in spec['keys']}
         label_counts: list = []
 
-        # k > 1: a (k, B, ...) super-batch per window, one upload each
-        source = loader if k == 1 else group_batches(loader, k)
-        for batch in prefetch_to_device(source, device):
+        # a (k, B, ...) super-batch per window, one upload each
+        for batch in prefetch_to_device(group_batches(loader, k), device):
             m = step_fn(batch['stack'], batch['is_labeled'], global_step)
             for key in sets:
                 sets[key].append(m[key])
             if spec['track_labels']:
-                # an accumulated step or a window also carries its presence
-                # weights
-                label_counts.append(tuple(m[key] for key in _LABEL_KEYS
-                                          if key in m))
+                label_counts.append(tuple(m[key] for key in _LABEL_KEYS))
             global_step += k
             profiler.step(global_step)
             epoch_float = global_step / steps_per_epoch

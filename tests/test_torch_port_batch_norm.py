@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from multimodal_siamese_cd_tpu_torch.models.batchnorm import BatchNorm2d
-from multimodal_siamese_cd_tpu_torch.ops import batch_norm, bn_stats
+from multimodal_siamese_cd_tpu_torch.ops import _build, batch_norm, bn_stats
 
 torch.set_num_threads(1)
 
@@ -264,12 +264,15 @@ def test_cuda_kernels_write_every_element(shape, dtype):
     vector = 16 // x.element_size()
     if plane % vector:
         y.fill_(float("nan"))
-        err = batch_norm._kernels()["apply"](
-            x.data_ptr(), mean.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), 1 if dtype == torch.bfloat16 else 0, shape[0] * shape[1],
-            shape[1], plane, vector, torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="mscd_batch_norm_apply kernel launch "
+                                               "failed: cudaError"):
+            _build.launch("batch_norm", "mscd_batch_norm_apply",
+                          batch_norm.APPLY_ARGTYPES, x.device,
+                          *(t.data_ptr() for t in (x, mean, scale, bias, y)),
+                          1 if dtype == torch.bfloat16 else 0, shape[0] * shape[1],
+                          shape[1], plane, vector)
         torch.cuda.synchronize()
-        assert err != 0 and torch.isnan(y).all()
+        assert torch.isnan(y).all()
 
 
 @pytest.mark.cuda

@@ -14,12 +14,15 @@ without a card, they skip inside the test. The other tests check the wrappers'
 contracts on the CPU.
 """
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from multimodal_siamese_cd_tpu_torch.models.batchnorm import BatchNorm2d
-from multimodal_siamese_cd_tpu_torch.ops import bn_stats, confusion, conv3x3
+from multimodal_siamese_cd_tpu_torch.ops import _build, batch_norm, bn_stats, confusion, conv3x3
 
 torch.set_num_threads(1)
 
@@ -106,6 +109,55 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no sm_90a here"):
         _build.load_library("confusion")
     assert not list((tmp_path / "torch_ext").glob("*.so*"))
+
+
+# each C entry point: its source under ops/csrc and the argument types its
+# wrapper declares
+ENTRY_POINTS = {
+    "mscd_bn_stats": ("bn_stats", bn_stats.ARGTYPES),
+    "mscd_confusion_counts": ("confusion", confusion.ARGTYPES),
+    "mscd_strict_confusion_counts": ("confusion", confusion.ARGTYPES),
+    "mscd_batch_norm_apply": ("batch_norm", batch_norm.APPLY_ARGTYPES),
+    "mscd_batch_norm_dx": ("batch_norm", batch_norm.DX_ARGTYPES),
+    "mscd_conv3x3": ("conv3x3", conv3x3.ARGTYPES),
+}
+
+
+def _c_kind(param: str) -> str:
+    """A C parameter's kind as ctypes passes it: a pointer, or an integer of
+    its width in bytes."""
+    if "*" in param:
+        return "pointer"
+    words = param.split()[:-1]           # the type, without the name
+    if words == ["long", "long"]:
+        return "int8"
+    if words == ["int"]:
+        return "int4"
+    raise AssertionError(f"a parameter type the test does not know: {param!r}")
+
+
+def _ctypes_kind(argtype) -> str:
+    if argtype is ctypes.c_void_p:
+        return "pointer"
+    assert argtype in (ctypes.c_int, ctypes.c_longlong), argtype
+    return f"int{ctypes.sizeof(argtype)}"
+
+
+@pytest.mark.parametrize("symbol", list(ENTRY_POINTS))
+def test_ctypes_signature_matches_the_c_prototype(symbol):
+    """The argument types a wrapper declares for a C entry point match the
+    ``extern "C"`` prototype in its source, parameter for parameter: a
+    pointer where C takes one, an integer of the C type's width where it
+    takes an integer (a wrong list would pass cut or shifted arguments
+    without an error). Needs no nvcc: the prototype is read from the
+    source."""
+    library, argtypes = ENTRY_POINTS[symbol]
+    source = (_build.CSRC / f"{library}.cu").read_text()
+    found = re.findall(rf'extern "C" int {symbol}\(([^)]*)\)', source)
+    assert len(found) == 1, f"{symbol}: {len(found)} prototypes in {library}.cu"
+    params = [" ".join(p.split()) for p in found[0].split(",")]
+    assert [_c_kind(p) for p in params] == [_ctypes_kind(t) for t in argtypes]
+    assert params[-1] == "void* stream"
 
 
 def _bn_inputs(shape, dtype, seed=0):
@@ -520,3 +572,46 @@ def test_cuda_graph_window_equals_the_eager_steps(model_type, monkeypatch):
     assert graph_m == eager_m
     for key, value in eager_sd.items():
         assert torch.equal(graph_sd[key], value), key
+
+@pytest.mark.cuda
+def test_default_run_training_replays_one_captured_graph(tmp_path, monkeypatch):
+    """Needs the card: ``run_training`` with the shipped
+    ``STEPS_PER_EXECUTION: auto`` (k = 1 on the card, whose dispatch is
+    fast) at topology [8, 16], batch 2, 32 px crops, one epoch of four
+    steps, evaluations stubbed, makes one window that runs as a CUDA graph:
+    the first step eager, then the capture, then three replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the step is captured only there")
+    from multimodal_siamese_cd_tpu_torch import train_lib, trainers
+    from multimodal_siamese_cd_tpu_torch.config import load_cfg
+    from multimodal_siamese_cd_tpu_torch.data.synthetic import (fixture_cfg_overrides,
+                                                                 generate_fixture_dataset)
+
+    generate_fixture_dataset(tmp_path / "data", seed=7)
+    cfg = load_cfg("siamese")
+    cfg.merge_from_list(fixture_cfg_overrides())
+    cfg.PATHS.DATASET, cfg.PATHS.OUTPUT = str(tmp_path / "data"), str(tmp_path)
+    cfg.MODEL.TOPOLOGY = [8, 16]
+    cfg.TRAINER.BATCH_SIZE, cfg.TRAINER.EPOCHS = 2, 1
+    cfg.DATALOADER.TRAINING_MULTIPLIER, cfg.LOG_FREQ, cfg.SAVE_CHECKPOINTS = 4, 2, []
+    assert cfg.TRAINER.get("STEPS_PER_EXECUTION", "auto") == "auto" and not cfg.DEBUG
+    windows, replays = [], []
+    real_window, real_replay = train_lib.make_scanned_train_step, torch.cuda.CUDAGraph.replay
+
+    def window_spy(*args, **kw):
+        windows.append(real_window(*args, **kw))
+        return windows[-1]
+
+    def replay_spy(graph):
+        replays.append(graph)
+        return real_replay(graph)
+
+    monkeypatch.setattr(train_lib, "make_scanned_train_step", window_spy)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", replay_spy)
+    monkeypatch.setattr(trainers.evaluation, "model_evaluation", lambda *a, **kw: None)
+    trainers.run_training(cfg, "supervised", device="cuda")
+    torch.cuda.synchronize()
+    (window,) = windows
+    assert window.mode == "graph" and window.graph.graph is not None
+    assert window.graph.capture_s > 0
+    assert len(replays) == 3 and all(g is window.graph.graph for g in replays)

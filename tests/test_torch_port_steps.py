@@ -106,7 +106,8 @@ def test_execution_plan_matches_jax(fixture_dataset, capsys, raw, debug, start_s
         _Sized(), start_step, device="cpu")
     assert capsys.readouterr().out == printed_jax
     assert k == k_jax
-    assert getattr(step_fn, "mode", None) == ("eager" if k > 1 else None)
+    # the window of k steps at every k (eager on the CPU)
+    assert (step_fn.mode, step_fn.graph) == ("eager", None)
     assert (k, bool(printed_jax)) == {
         "auto": (1, False), 2: (1, True) if debug or start_step else (2, False),
         4: (4, False), 3: (1, True)}[raw]
@@ -136,7 +137,7 @@ def test_auto_plan_takes_rank_zeros_probe(fixture_dataset, monkeypatch, capsys):
     assert k == 4 == trainers.auto_steps_per_execution(4, 4, 2.7)
     assert capsys.readouterr().out == (
         "dispatch latency 2.70 ms/step -> STEPS_PER_EXECUTION=4 (scan-fused)\n")
-    assert step_fn.mode == "eager"
+    assert (step_fn.mode, step_fn.graph) == ("eager", None)
 
 
 def _cfgs_pair(root, name="siamese", overrides=()):
@@ -409,6 +410,49 @@ def test_cli_checkpoints_match_across_k(cli_runs):
         for key, value in state.items():
             assert value.device.type == "cpu" or key != "step"
             assert torch.equal(value, opt2["state"][i][key]), (i, key)
+
+
+def test_trainer_drives_the_window_at_every_k(fixture_dataset, tmp_path, monkeypatch):
+    """``run_training`` (one epoch of four steps, LOG_FREQ 2, evaluations
+    stubbed) at k = 1 and k = 2 takes every step through one
+    ``make_scanned_train_step`` window fed by ``group_batches(loader, k)``:
+    the window's calls hold k batches each at steps 0, k, 2k, ..., and the
+    bare step is never called outside it."""
+    calls: dict = {}
+
+    def window_spy(*args, **kw):
+        window = real_window(*args, **kw)
+        calls["windows"].append(window)
+
+        def spied(stacks, is_labeled, global_step):
+            calls["steps"].append((stacks.shape[0], global_step))
+            return window(stacks, is_labeled, global_step)
+        spied.mode, spied.graph = window.mode, window.graph
+        return spied
+
+    def group_spy(iterator, k):
+        calls["k"].append(k)
+        return real_group(iterator, k)
+
+    real_window, real_group = train_lib.make_scanned_train_step, trainers.group_batches
+    monkeypatch.setattr(train_lib, "make_scanned_train_step", window_spy)
+    monkeypatch.setattr(trainers, "group_batches", group_spy)
+    monkeypatch.setattr(trainers.evaluation, "model_evaluation", lambda *a, **kw: None)
+    for k in (1, 2):
+        calls.update(windows=[], steps=[], k=[])
+        (tmp_path / f"k{k}").mkdir()
+        opts = fixture_cfg_overrides() + [
+            "MODEL.TOPOLOGY", "[8, 16]", "TRAINER.BATCH_SIZE", "2",
+            "TRAINER.PRECISION", "fp32", "TRAINER.EPOCHS", "1",
+            "DATALOADER.TRAINING_MULTIPLIER", "4", "SAVE_CHECKPOINTS", "[]",
+            "LOG_FREQ", "2", "TRAINER.STEPS_PER_EXECUTION", str(k)]
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_supervised.main(["-c", "siamese", "-p", "proj", "-o",
+                                   str(tmp_path / f"k{k}"), "-d", str(fixture_dataset),
+                                   "--device", "cpu"] + opts)
+        assert len(calls["windows"]) == 1 and calls["windows"][0].mode == "eager"
+        assert calls["k"] == [k]
+        assert calls["steps"] == [(k, step) for step in range(0, 4, k)]
 
 
 @pytest.mark.parametrize("k_from,k_to", [(1, 2), (2, 1)])

@@ -1,9 +1,9 @@
-"""The port's host spans and counters (``tracing.py``) on the CPU: nothing
-recorded and no profiler annotation while tracing is off; under a
-profiler, the serving call's spans nested in ``serve.predict`` and on the
-profiler's timeline; after ``enable()``, the loader's spans from its
-worker threads, an unlabeled item's span inside its batch's, the feed's
-row counters; the ring; a profiler's warm-up. The card's spans
+"""The port's host spans (``tracing.py``) on the CPU: nothing recorded
+and no profiler annotation while tracing is off; under a profiler, the
+serving call's spans nested in ``serve.predict`` and on the profiler's
+timeline; after ``enable()``, the loader's spans from its worker threads,
+an unlabeled item's span inside its batch's; the ring; a profiler's
+warm-up. The card's spans
 (``feed.stage`` on the staging thread, ``step.prepare`` / ``step.update``
 around graph replays) are held by the ``cuda``-marked test, which skips
 here.
@@ -131,7 +131,7 @@ def test_off_records_nothing_and_makes_no_annotation(path, server, monkeypatch):
     else:
         loader = TrainLoader(_Items(8), batch_size=2, num_workers=2, seed=1)
         assert len(list(prefetch_to_device(group_batches(loader, 2), "cpu"))) == 2
-    assert tracing.records() == [] and tracing.counts() == []
+    assert tracing.records() == []
 
 
 def test_predict_spans_under_the_profiler(server):
@@ -184,49 +184,6 @@ def test_loader_spans_from_worker_threads():
         assert all(w[2] == "loader.epoch_start" for w in inside)
     groups = _by_name(recs, "loader.group")
     assert [r[1] for r in groups] == list(range(len(loader) // k)) * epochs
-
-
-@pytest.mark.parametrize("on", [False, True])
-def test_count_records_only_while_on_and_reads_no_clock_while_off(on, monkeypatch):
-    class Clock:
-        reads = 0
-
-        @classmethod
-        def perf_counter(cls):
-            cls.reads += 1
-            return 5.0
-
-    monkeypatch.setattr(tracing, "time", Clock)
-    if on:
-        tracing.enable()
-    tracing.count("feed.rows", 16, 3)
-    tracing.count("feed.rows_unlabeled", 2)
-    if not on:
-        assert tracing.counts() == [] and Clock.reads == 0
-        return
-    main = threading.current_thread().name
-    assert tracing.counts() == [("feed.rows", 3, 16, main, 5.0),
-                                ("feed.rows_unlabeled", None, 2, main, 5.0)]
-    assert tracing.records() == []           # the spans' ring is apart
-    tracing.clear()
-    assert tracing.counts() == []
-
-
-def test_feed_counts_the_rows_and_unlabeled_rows_it_delivers():
-    tracing.enable()
-    loader = TrainLoader(_Mixed(30), batch_size=3, num_workers=2, seed=4)
-    delivered = []
-    for _ in range(2):
-        delivered += list(prefetch_to_device(group_batches(loader, 2), "cpu"))
-    counts = tracing.counts()
-    rows = [c for c in counts if c[0] == "feed.rows"]
-    unlabeled = [c for c in counts if c[0] == "feed.rows_unlabeled"]
-    # one of each a window, under the window's index in its epoch
-    assert [c[1] for c in rows] == [c[1] for c in unlabeled] == list(range(5)) * 2
-    labs = np.stack([b["is_labeled"].numpy() for b in delivered])
-    assert sum(c[2] for c in rows) == labs.size == 60
-    assert sum(c[2] for c in unlabeled) == np.count_nonzero(labs == 0) == 20
-    assert [c[2] for c in unlabeled] == [int((b["is_labeled"] == 0).sum()) for b in delivered]
 
 
 def test_unlabeled_item_span_inside_its_batch():
