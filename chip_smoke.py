@@ -47,6 +47,17 @@ script exits non-zero:
           in turns (an order, then its reverse) with the plain versions and
           the PyTorch calls of the same functions (``torch.batch_norm_elemt``,
           ``torch.batch_norm_backward_elemt``), beside the byte bound;
+       e. the channels-last kernels of the three (the training step's
+          layout on the card): ``bn_stats`` at every BatchNorm shape of the
+          step and at ragged shapes within the NCHW kernel's float64 limit,
+          two launches bit-equal; ``batch_norm_apply`` / ``batch_norm_dx``
+          bit-equal to the NCHW kernels on the same values at batch 8 and
+          16 and at channel counts that are no multiple of 8; then the
+          three timed from CUDA graphs at 8 and 16 x 64 x 256^2 and at the
+          deepest level (16 x 512 x 16^2), bf16, replayed in turns with
+          the NCHW kernels and PyTorch's calls on channels-last tensors
+          (``torch.batch_norm_elemt`` as ``library_ms``), beside the byte
+          bound;
   4. the inference path at full width: a synthetic SpaceNet7-layout split
      of ~1000^2 scenes, ``configs/siamese.yaml`` (topology [64,128,256,512],
      6 channels per date, bf16), seeded random weights and BN statistics,
@@ -241,7 +252,10 @@ Every ``trainers.run_training`` on the card in a world of one rank
 (phases 5-8, 9c, 10b, 12c and 13) runs its steps through one window's CUDA
 graph (:func:`_graph_run`): the wrappers count the first window's steps,
 run eagerly, and the capture, (k + 1) x a step's launches; the replays
-launch no wrapper.
+launch no wrapper. Those steps run in channels-last: in phases 5-8, 9c
+and 10b every ``bn_stats``, ``batch_norm_apply`` and ``batch_norm_dx``
+launch is a channels-last one and train-mode BatchNorm makes no layout
+copy.
 
 Wherever phases 5-15 count bn_stats launches, in this process, a child
 or a rank, they count the train-mode BatchNorm's elementwise kernels too:
@@ -1065,6 +1079,139 @@ def phase_batch_norm(card: dict) -> tuple:
     return rows["apply"], rows["dx"]
 
 
+# -- phase 3e -----------------------------------------------------------------
+
+# the step's deepest BatchNorm level at batch 16
+NHWC_TIMED = [(8, 64, 256, 256), (16, 64, 256, 256), (16, 512, 16, 16)]
+# channel counts that are no multiple of 8: the kernels' scalar path
+NHWC_RAGGED = [(2, 12, 9, 7), (2, 20, 8, 8)]
+
+
+def _channels_last(*tensors):
+    return [t.contiguous(memory_format=torch.channels_last) for t in tensors]
+
+
+def phase_nhwc(card: dict) -> tuple:
+    """The channels-last kernels: ``bn_stats`` against the float64 plain
+    version and bit-equal from launch to launch, ``batch_norm_apply`` /
+    ``batch_norm_dx`` bit-equal to their plain versions and to the NCHW
+    kernels on the same values;
+    then each timed from CUDA graphs at ``NHWC_TIMED`` (bf16) in turns with
+    its NCHW kernel and PyTorch's call on channels-last tensors, beside the
+    byte bound. Returns the rows of the three (times at 8 x 64 x 256^2)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dev = torch.device("cuda")
+    for line in _ptxas_summary("bn_stats") + _ptxas_summary("batch_norm"):
+        if "nhwc" in line:
+            log(f"  ptxas {line}")
+    launches = (bn_stats.bn_stats.launches_nhwc, batch_norm.batch_norm_apply.launches_nhwc,
+                batch_norm.batch_norm_dx.launches_nhwc)
+    worst = max_err = 0.0
+    shapes = BN_SHAPES + [(16, *s[1:]) for s in BN_SHAPES] + BN_RAGGED + NHWC_RAGGED
+    for shape in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy, (mean, scale, bias, a, b) = _bn_elementwise_inputs(gen, shape, dtype)
+            xc, dyc = _channels_last(x, dy)
+            for bb in (xc, dyc):
+                got = bn_stats.bn_stats(bb, xc)
+                again = bn_stats.bn_stats(bb, xc)
+                ratio, err = _bn_error(got, bb, xc)
+                worst, max_err = max(worst, ratio), max(max_err, err)
+                if ratio > 1.0 or not all(torch.equal(g, h) for g, h in zip(got, again)):
+                    raise AssertionError(f"channels-last bn_stats {shape} {dtype}: error "
+                                         f"ratio {ratio:.3g} (limit 1) or launches differ")
+            y = batch_norm.batch_norm_apply(xc, mean, scale, bias)
+            dx = batch_norm.batch_norm_dx(dyc, xc, mean, a, b, scale)
+            want_y = batch_norm.batch_norm_apply(x, mean, scale, bias)
+            want_dx = batch_norm.batch_norm_dx(dy, x, mean, a, b, scale)
+            plain_y = batch_norm.batch_norm_apply_reference(xc, mean, scale, bias)
+            plain_dx = batch_norm.batch_norm_dx_reference(dyc, xc, mean, a, b, scale)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, plain_y) and torch.equal(dx, plain_dx)):
+                raise AssertionError(f"channels-last batch_norm kernels at {shape} {dtype}: "
+                                     f"not bit-equal to the plain versions")
+            if not (torch.equal(y, want_y) and torch.equal(dx, want_dx)
+                    and y.is_contiguous(memory_format=torch.channels_last)):
+                raise AssertionError(f"channels-last batch_norm kernels at {shape} {dtype}: "
+                                     f"not bit-equal to the NCHW kernels")
+            del x, dy, xc, dyc, y, dx, want_y, want_dx, plain_y, plain_dx
+    made = tuple(w.launches_nhwc - n for w, n in zip(
+        (bn_stats.bn_stats, batch_norm.batch_norm_apply, batch_norm.batch_norm_dx), launches))
+    # a shape of one channel or one pixel a plane is NCHW as well: the NCHW
+    # kernels take it
+    want = 2 * sum(1 for s in shapes if s[1] > 1 and s[2] * s[3] > 1)
+    if made != (4 * want, want, want):
+        raise AssertionError(f"channels-last launches {made}, expected "
+                             f"{(4 * want, want, want)}")
+    log(f"channels-last kernels at {len(shapes)} shapes x bf16, f32: bn_stats within "
+        f"its float64 limit ({worst:.4f} of it; max |kernel - ref| {max_err:.3e}), two "
+        f"launches bit-equal; batch_norm_apply / dx bit-equal to their plain versions "
+        f"and to the NCHW kernels (channels-last launches {made})")
+    torch.cuda.empty_cache()
+
+    bw = peaks(card["name"])[0]
+    rows = {}
+    for shape in NHWC_TIMED:
+        x, dy, (mean, scale, bias, a, b) = _bn_elementwise_inputs(gen, shape, torch.bfloat16)
+        xc, dyc = _channels_last(x, dy)
+        c, n = shape[1], x.numel() // shape[1]
+        y, dx, yc, dxc = (torch.empty_like(t) for t in (x, x, xc, xc))
+        s1, s2 = torch.empty(c, device=dev), torch.empty(c, device=dev)
+        part = torch.empty(c * 2 * -(-n // bn_stats.CHUNK), device=dev)
+        part_c = torch.empty(c * 2 * bn_stats.nhwc_chunks(xc), device=dev)
+        invstd = torch.ones(c, device=dev)
+        count = torch.full((1,), n, dtype=torch.int32, device=dev)
+        zeros = torch.zeros(c, device=dev)
+        fns = {"stats_fwd": lambda: bn_stats.launch_nhwc(xc, xc, s1, s2, part_c),
+               "stats_fwd_nchw": lambda: bn_stats.launch(x, x, s1, s2, part),
+               "stats_bwd": lambda: bn_stats.launch_nhwc(dyc, xc, s1, s2, part_c),
+               "stats_bwd_nchw": lambda: bn_stats.launch(dy, x, s1, s2, part),
+               "apply": lambda: batch_norm.launch_apply(xc, mean, scale, bias, yc),
+               "apply_nchw": lambda: batch_norm.launch_apply(x, mean, scale, bias, y),
+               "dx": lambda: batch_norm.launch_dx(dyc, xc, mean, a, b, scale, dxc),
+               "dx_nchw": lambda: batch_norm.launch_dx(dy, x, mean, a, b, scale, dx)}
+        library = {"stats_bwd_library": lambda: torch.batch_norm_backward_reduce(
+                       dyc, xc, zeros, invstd, None, True, False, False),
+                   "apply_library": lambda: torch.batch_norm_elemt(
+                       xc, scale, bias, mean, invstd, 1e-5),
+                   "dx_library": lambda: torch.batch_norm_backward_elemt(
+                       dyc, xc, mean, invstd, scale, a, b, count)}
+        for name, fn in library.items():
+            try:
+                fn()
+                fns[name] = fn
+            except (RuntimeError, TypeError) as e:
+                log(f"  {name}: {str(e).splitlines()[0][:100]} (not timed)")
+        got = graph_time_ms(fns, list(fns) + list(reversed(fns)), inner=10, rounds=5)
+        esize = x.element_size()
+        line = []
+        for kind, tensors, vectors, out_vectors in (
+                ("stats_fwd", 1, 0, 2), ("stats_bwd", 2, 0, 2), ("apply", 2, 3, 0),
+                ("dx", 3, 4, 0)):
+            n_bytes = tensors * x.numel() * esize + (vectors + out_vectors) * c * 4
+            bound_ms = n_bytes / bw * 1e3
+            lib_ms = got.get(f"{kind}_library")
+            line.append(f"{kind} {got[kind] * 1e3:.1f} us ({bound_ms / got[kind] * 100:.1f}% "
+                        f"of {bound_ms * 1e3:.1f} us; NCHW {got[kind + '_nchw'] * 1e3:.1f} us"
+                        + (f", PyTorch {lib_ms * 1e3:.1f} us" if lib_ms else "") + ")")
+            if shape == NHWC_TIMED[0] and kind != "stats_fwd":
+                name = {"stats_bwd": "bn_stats_nhwc", "apply": "batch_norm_apply_nhwc",
+                        "dx": "batch_norm_dx_nhwc"}[kind]
+                rows[kind] = {
+                    "name": name, "route": "cuda",
+                    "source": "multimodal_siamese_cd_tpu_torch/ops/csrc/"
+                              + ("bn_stats.cu" if kind == "stats_bwd" else "batch_norm.cu"),
+                    "replaces": "tools/bench_bn_reduce.py:35" if kind == "stats_bwd" else None,
+                    "launches": None, "max_abs_err": max_err if kind == "stats_bwd" else 0.0,
+                    "ms": got[kind], "plain_ms": None, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": lib_ms}
+        log(f"channels-last at {shape} bf16 on {card['smi']} (CUDA graphs of 10 launches, "
+            f"median of 5 rounds in turns): " + "; ".join(line))
+        del x, dy, xc, dyc, y, dx, yc, dxc, fns, library
+        torch.cuda.empty_cache()
+    return rows["stats_bwd"], rows["apply"], rows["dx"]
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def write_split(root: Path) -> list:
@@ -1289,7 +1436,8 @@ def _records(out: Path, name: str) -> list:
 # train-mode BatchNorm's elementwise kernels over the main-path phases
 # (:func:`_engaged`): their launches, and the bn_stats launches of the
 # same calls
-ELEMENTWISE = {"apply": 0, "dx": 0, "bn_stats": 0}
+ELEMENTWISE = {"apply": 0, "dx": 0, "bn_stats": 0, "apply_nhwc": 0, "dx_nhwc": 0,
+               "bn_stats_nhwc": 0}
 
 
 def _engaged(label: str, bn: int, elementwise) -> None:
@@ -1311,9 +1459,10 @@ def _engaged(label: str, bn: int, elementwise) -> None:
 
 
 def _reset_counts() -> None:
-    bn_stats.bn_stats.launches = 0
-    batch_norm.batch_norm_apply.launches = 0
-    batch_norm.batch_norm_dx.launches = 0
+    for wrapper in (bn_stats.bn_stats, batch_norm.batch_norm_apply,
+                    batch_norm.batch_norm_dx):
+        wrapper.launches = wrapper.launches_nhwc = 0
+    batchnorm.BatchNorm2d.layout_copies = 0
     confusion.confusion_counts.launches = 0
     confusion.strict_confusion_counts.launches = 0
 
@@ -1321,10 +1470,15 @@ def _reset_counts() -> None:
 def _counts(label: str) -> tuple:
     """Launches of bn_stats, the rounding-rule and the strict-rule confusion
     kernel since the last reset, the elementwise kernels' held to
-    bn_stats's (:func:`_engaged`, once a reset)."""
+    bn_stats's (:func:`_engaged`, once a reset); the channels-last ones
+    added to ``ELEMENTWISE``."""
     bn = bn_stats.bn_stats.launches
     _engaged(label, bn, (batch_norm.batch_norm_apply.launches,
                          batch_norm.batch_norm_dx.launches))
+    for key, wrapper in (("bn_stats_nhwc", bn_stats.bn_stats),
+                         ("apply_nhwc", batch_norm.batch_norm_apply),
+                         ("dx_nhwc", batch_norm.batch_norm_dx)):
+        ELEMENTWISE[key] += wrapper.launches_nhwc
     return (bn, confusion.confusion_counts.launches,
             confusion.strict_confusion_counts.launches)
 
@@ -1353,7 +1507,16 @@ def _graph_run(label: str, made: list) -> str:
     if len(made) != 1 or made[0].mode != "graph" or made[0].graph.graph is None:
         raise AssertionError(f"{label}: the trainer's window did not run as a "
                              f"captured CUDA graph ({[w.mode for w in made]})")
-    return f"one CUDA graph, captured in {made[0].graph.capture_s:.3f} s host"
+    wrappers = (bn_stats.bn_stats, batch_norm.batch_norm_apply, batch_norm.batch_norm_dx)
+    every = tuple(w.launches for w in wrappers)
+    nhwc = tuple(w.launches_nhwc for w in wrappers)
+    copies = batchnorm.BatchNorm2d.layout_copies
+    if nhwc != every or copies:
+        raise AssertionError(f"{label}: the trainer's steps launched {nhwc} of {every} "
+                             f"bn_stats / batch_norm_apply / batch_norm_dx calls in "
+                             f"channels-last and made {copies} layout copies")
+    return (f"one CUDA graph, captured in {made[0].graph.capture_s:.3f} s host, "
+            f"every BatchNorm launch channels-last {nhwc}, no layout copy")
 
 
 def phase_train(card: dict, rows: dict, dev: torch.device, root: Path,
@@ -4003,6 +4166,8 @@ def main() -> None:
     rows["bn_stats"] = phase_bn_stats(card)
     rows["conv3x3"] = phase_conv3x3(card)
     rows["batch_norm_apply"], rows["batch_norm_dx"] = phase_batch_norm(card)
+    (rows["bn_stats_nhwc"], rows["batch_norm_apply_nhwc"],
+     rows["batch_norm_dx_nhwc"]) = phase_nhwc(card)
     dev = torch.device("cuda")
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     maker = None
@@ -4067,10 +4232,14 @@ def main() -> None:
         tmp.cleanup()
     rows["batch_norm_apply"]["launches"] = ELEMENTWISE["apply"]
     rows["batch_norm_dx"]["launches"] = ELEMENTWISE["dx"]
+    for key in ("bn_stats", "apply", "dx"):
+        name = "bn_stats_nhwc" if key == "bn_stats" else f"batch_norm_{key}_nhwc"
+        rows[name]["launches"] = ELEMENTWISE[f"{key}_nhwc"]
     log(f"train-mode BatchNorm over phases 5-15: batch_norm_apply "
         f"{ELEMENTWISE['apply']} + batch_norm_dx {ELEMENTWISE['dx']} launches, "
         f"bn_stats {ELEMENTWISE['bn_stats']} in the same counts: every call took "
-        f"its elementwise kernel")
+        f"its elementwise kernel; of them in channels-last {ELEMENTWISE['apply_nhwc']} + "
+        f"{ELEMENTWISE['dx_nhwc']}, bn_stats {ELEMENTWISE['bn_stats_nhwc']}")
     log(f"kernels: {json.dumps(list(rows))}; chip_smoke wall "
         f"{time.perf_counter() - t_start:.1f} s (builds included) on {card['smi']}")
     print(json.dumps({"kernels": list(rows.values())}))

@@ -22,7 +22,14 @@ The forward sums come from ``bn_stats(x, x)``, the backward's from
 ``bn_stats(dy, x)``; the per-element work, the normalisation and ``dx``,
 from ``batch_norm_apply`` and ``batch_norm_dx`` (:mod:`..ops.batch_norm`)
 over per-channel vectors computed here. On the card all three launch their
-CUDA kernels, one launch of each kernel per call. A module
+CUDA kernels, one launch of each kernel per call. The module keeps its
+input's layout (:mod:`..ops.layout`): an input dense in NCHW or in
+channels-last (the training step's layout on the card) is normalised in
+that layout, through the kernels of that layout, and its gradient is made
+dense in it too; a view dense in neither is first copied to NCHW.
+Each copy of ``x`` or ``dy`` that this makes is counted in
+``BatchNorm2d.layout_copies``: 0 in a step whose activations are all in
+one layout. A module
 called twice in one step (the Siamese encoder runs on both dates) updates
 its running statistics twice, in call order, as flax does. While
 ``recomputing`` is set (the backward's second forward of a checkpointed
@@ -62,6 +69,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import layout
 from ..ops.batch_norm import batch_norm_apply, batch_norm_dx
 from ..ops.bn_stats import bn_stats
 from ..parallel import group, halo
@@ -78,7 +86,7 @@ class _TrainBatchNorm(torch.autograd.Function):
         """``running_mean`` / ``running_var`` None: no running update;
         ``reduce``: None, or how the statistics are summed over the ranks
         (:func:`_reduction`)."""
-        x = x.contiguous()
+        x = _dense(x, layout.memory_format(x))
         n = x.numel() // x.shape[1]
         s1, s2 = bn_stats(x, x)
         if reduce is not None:
@@ -105,7 +113,7 @@ class _TrainBatchNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight, mean, rstd = ctx.saved_tensors
         n = ctx.n
-        dy = dy.contiguous()
+        dy = _dense(dy, layout.memory_format(x))
         s1, s2 = bn_stats(dy, x)
         dbias = s1
         dweight = rstd * (s2 - mean * s1)
@@ -120,6 +128,15 @@ class _TrainBatchNorm(torch.autograd.Function):
         # dx = weight·rstd·(dy - Σdy/N - x̂·dweight/N), x̂ = (x - mean)·rstd
         dx = batch_norm_dx(dy, x, mean, rstd * dw_all / n, s1 / n, weight * rstd)
         return dx, dweight, dbias, None, None, None, None, None
+
+
+def _dense(t: torch.Tensor, memory_format) -> torch.Tensor:
+    """``t`` dense in ``memory_format``, counting a copy in
+    ``BatchNorm2d.layout_copies``."""
+    if t.is_contiguous(memory_format=memory_format):
+        return t
+    BatchNorm2d.layout_copies += 1
+    return t.contiguous(memory_format=memory_format)
 
 
 def _summed_over_ranks(s1: torch.Tensor, s2: torch.Tensor, process_group=None):
@@ -149,7 +166,11 @@ class BatchNorm2d(nn.Module):
     semantics (module docstring). ``momentum`` is torch's: the weight of
     the new batch statistic (0.1 == flax momentum 0.9). ``sync`` (default
     True; the factory sets ``MODEL.SYNC_BN``) reduces the statistics over
-    the ranks of a multi-process world."""
+    the ranks of a multi-process world. ``BatchNorm2d.layout_copies``
+    counts the copies train mode made to bring an input or its gradient
+    into one layout (module docstring)."""
+
+    layout_copies = 0
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):

@@ -1,8 +1,8 @@
 """Train-mode BatchNorm's elementwise halves: the CUDA kernels and their
 plain versions.
 
-For an NCHW activation ``x`` (bf16 or float32) and ``(C,)`` float32
-per-channel vectors:
+For a ``(B, C, H, W)`` activation ``x`` (bf16 or float32; contiguous NCHW
+or contiguous channels-last) and ``(C,)`` float32 per-channel vectors:
 
 * ``batch_norm_apply(x, mean, scale, bias)`` is the forward's normalisation,
   ``y = ((x - mean) · scale + bias)`` in float32, cast to ``x``'s dtype;
@@ -15,13 +15,16 @@ from its statistics (``scale = rstd · weight``; ``a = rstd · dweight / N``,
 ``b = Σdy / N``, ``g = weight · rstd``) and calls these for the per-element
 work.
 
-For CUDA tensors each launches its hand-written kernel in
-``csrc/batch_norm.cu`` (built at first use by :mod:`._build`), one pass
-that reads its operands once and writes its result once; for CPU tensors
-each runs its plain PyTorch version, :func:`batch_norm_apply_reference`
-and :func:`batch_norm_dx_reference`, the float32 composition the kernels
-repeat operation by operation (bit-equal on the card). There is no switch
-and no fallback: a kernel that fails to build or launch raises.
+For CUDA tensors each launches a hand-written kernel in
+``csrc/batch_norm.cu`` (built at first use by :mod:`._build`), the one of
+its operands' layout (:func:`.layout.of`: a plane kernel for NCHW, a
+channels-last kernel otherwise), one pass that reads its operands once and
+writes its result once, in that layout; for CPU tensors each runs its plain
+PyTorch version, :func:`batch_norm_apply_reference` and
+:func:`batch_norm_dx_reference`, the float32 composition the kernels repeat
+operation by operation (bit-equal on the card), which takes any strides.
+There is no switch and no fallback: a kernel that fails to build or launch
+raises.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from ctypes import c_int, c_longlong, c_void_p
 
 import torch
 
-from . import _build
+from . import _build, layout
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # after the tensors: dtype, rows, channels, plane, width, stream
@@ -39,6 +42,12 @@ _SHAPE_ARGTYPES = (c_int, c_longlong, c_int, c_longlong, c_int, c_void_p)
 APPLY_ARGTYPES = (c_void_p,) * 5 + _SHAPE_ARGTYPES
 # mscd_batch_norm_dx(dy, x, mean, a, b, g, dx, ...)
 DX_ARGTYPES = (c_void_p,) * 7 + _SHAPE_ARGTYPES
+# the channels-last entries, mscd_batch_norm_{apply,dx}_nhwc: the same
+# tensors, then dtype, rows (B·H·W), channels, stream (the C entry picks the
+# vector path)
+_NHWC_SHAPE_ARGTYPES = (c_int, c_longlong, c_int, c_void_p)
+APPLY_NHWC_ARGTYPES = (c_void_p,) * 5 + _NHWC_SHAPE_ARGTYPES
+DX_NHWC_ARGTYPES = (c_void_p,) * 7 + _NHWC_SHAPE_ARGTYPES
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -64,10 +73,11 @@ def batch_norm_dx_reference(dy, x, mean, a, b, g):
     return dx.to(dy.dtype)
 
 
-def _check(tensors: dict, vectors: dict) -> None:
-    """Raise unless the ``tensors`` are one contiguous NCHW shape and dtype
-    (bf16 or float32) and the ``vectors`` contiguous ``(C,)`` float32, all
-    on one device."""
+def _check(tensors: dict, vectors: dict) -> str:
+    """Raise unless the ``tensors`` are one shape and dtype (bf16 or
+    float32), all contiguous in one layout (NCHW or channels-last), and the
+    ``vectors`` contiguous ``(C,)`` float32, all on one device; return the
+    layout, ``"nchw"`` or ``"nhwc"``."""
     (first, x), *rest = tensors.items()
     if x.dim() != 4:
         raise ValueError(f"{first} must be a (B, C, H, W) tensor, got shape "
@@ -86,77 +96,98 @@ def _check(tensors: dict, vectors: dict) -> None:
     for name, t in {**tensors, **vectors}.items():
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, {first} on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous (NCHW)")
+    for name, v in vectors.items():
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    found = layout.of(x)
+    for name, t in tensors.items():
+        if found is None or layout.of(t) != found:
+            raise ValueError(f"{name} must be contiguous in {first}'s layout, NCHW "
+                             f"or channels-last")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no batch_norm kernel for device {x.device}")
+    return found
 
 
 def vector_width(shape, dtype: torch.dtype, pointers) -> int:
-    """The elements a thread moves at once in a launch on tensors of
-    ``shape`` and ``dtype`` at the addresses ``pointers``: 16 bytes' worth
-    when H·W is a multiple of that and every pointer is 16-byte aligned,
-    else one. The C entry shapes the grid from it."""
-    plane = shape[2] * shape[3]
+    """The elements a thread of the NCHW kernels moves at once in a launch
+    on tensors of ``shape`` and ``dtype`` at the addresses ``pointers``: 16
+    bytes' worth when H·W is a multiple of that and every pointer is 16-byte
+    aligned, else one. The C entry shapes the grid from it."""
     vector = 16 * 8 // torch.finfo(dtype).bits
     aligned = all(p % 16 == 0 for p in pointers)
-    return vector if plane % vector == 0 and aligned else 1
+    return vector if shape[2] * shape[3] % vector == 0 and aligned else 1
 
 
-def _launch_shape(out: torch.Tensor, *tensors) -> list:
-    """The C entry's shape arguments for a checked, non-empty CUDA launch
-    writing ``out``: dtype, rows, channels, plane and vector width."""
+def _launch(kind: str, out: torch.Tensor, tensors: tuple) -> None:
+    """Launch the ``kind`` ("apply" or "dx") kernel of ``out``'s layout on
+    the current stream: ``tensors`` (the inputs, the vectors, then ``out``)
+    and the C entry's shape arguments, dtype, rows, channels and, for NCHW,
+    plane and vector width."""
     batch, channels, h, w = out.shape
-    width = vector_width(out.shape, out.dtype,
-                         [t.data_ptr() for t in (out, *tensors)])
-    return [_DTYPE_CODE[out.dtype], batch * channels, channels, h * w, width]
+    if layout.of(out) == "nhwc":
+        symbol = f"mscd_batch_norm_{kind}_nhwc"
+        argtypes = APPLY_NHWC_ARGTYPES if kind == "apply" else DX_NHWC_ARGTYPES
+        shape = [batch * h * w, channels]
+    else:
+        symbol = f"mscd_batch_norm_{kind}"
+        argtypes = APPLY_ARGTYPES if kind == "apply" else DX_ARGTYPES
+        width = vector_width(out.shape, out.dtype,
+                             [t.data_ptr() for t in tensors if t.dim() == 4])
+        shape = [batch * channels, channels, h * w, width]
+    _build.launch("batch_norm", symbol, argtypes, out.device,
+                  *(t.data_ptr() for t in tensors), _DTYPE_CODE[out.dtype], *shape)
 
 
 def launch_apply(x, mean, scale, bias, y) -> None:
-    """Launch the forward kernel on the current stream, writing ``y``.
-    Arguments must already be checked, non-empty CUDA tensors;
-    ``batch_norm_apply`` is the entry point."""
-    _build.launch("batch_norm", "mscd_batch_norm_apply", APPLY_ARGTYPES, x.device,
-                  *(t.data_ptr() for t in (x, mean, scale, bias, y)),
-                  *_launch_shape(y, x))
+    """Launch the forward kernel of ``y``'s layout on the current stream,
+    writing ``y``. Arguments must already be checked, non-empty CUDA
+    tensors; ``batch_norm_apply`` is the entry point."""
+    _launch("apply", y, (x, mean, scale, bias, y))
 
 
 def launch_dx(dy, x, mean, a, b, g, dx) -> None:
-    """Launch the input-gradient kernel on the current stream, writing
-    ``dx``. Arguments must already be checked, non-empty CUDA tensors;
-    ``batch_norm_dx`` is the entry point."""
-    _build.launch("batch_norm", "mscd_batch_norm_dx", DX_ARGTYPES, x.device,
-                  *(t.data_ptr() for t in (dy, x, mean, a, b, g, dx)),
-                  *_launch_shape(dx, dy, x))
+    """Launch the input-gradient kernel of ``dx``'s layout on the current
+    stream, writing ``dx``. Arguments must already be checked, non-empty
+    CUDA tensors; ``batch_norm_dx`` is the entry point."""
+    _launch("dx", dx, (dy, x, mean, a, b, g, dx))
 
 
 def batch_norm_apply(x, mean, scale, bias):
-    """``((x - mean) · scale + bias)`` per channel of NCHW ``x``, in
-    ``x``'s dtype. CUDA tensors launch the kernel (and add one to
-    ``batch_norm_apply.launches``); CPU tensors take the plain version."""
-    _check({"x": x}, {"mean": mean, "scale": scale, "bias": bias})
+    """``((x - mean) · scale + bias)`` per channel of ``x``, in ``x``'s
+    dtype and layout. CUDA tensors launch the kernel of their layout (and
+    add one to ``batch_norm_apply.launches``, and for channels-last one to
+    ``batch_norm_apply.launches_nhwc`` too); CPU tensors take the plain
+    version."""
+    found = _check({"x": x}, {"mean": mean, "scale": scale, "bias": bias})
     if x.device.type == "cpu":
         return batch_norm_apply_reference(x, mean, scale, bias)
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
     if x.numel():
         launch_apply(x, mean, scale, bias, y)
         batch_norm_apply.launches += 1
+        batch_norm_apply.launches_nhwc += found == "nhwc"
     return y
 
 
 def batch_norm_dx(dy, x, mean, a, b, g):
-    """``((dy - b) - (x - mean) · a) · g`` per channel of NCHW ``dy``,
-    ``x``, in their dtype. CUDA tensors launch the kernel (and add one to
-    ``batch_norm_dx.launches``); CPU tensors take the plain version."""
-    _check({"dy": dy, "x": x}, {"mean": mean, "a": a, "b": b, "g": g})
+    """``((dy - b) - (x - mean) · a) · g`` per channel of ``dy``, ``x``, in
+    their dtype and layout. CUDA tensors launch the kernel of their layout
+    (and add one to ``batch_norm_dx.launches``, and for channels-last one to
+    ``batch_norm_dx.launches_nhwc`` too); CPU tensors take the plain
+    version."""
+    found = _check({"dy": dy, "x": x}, {"mean": mean, "a": a, "b": b, "g": g})
     if x.device.type == "cpu":
         return batch_norm_dx_reference(dy, x, mean, a, b, g)
-    dx = torch.empty(dy.shape, dtype=dy.dtype, device=dy.device)
+    dx = torch.empty_like(dy)
     if dy.numel():
         launch_dx(dy, x, mean, a, b, g, dx)
         batch_norm_dx.launches += 1
+        batch_norm_dx.launches_nhwc += found == "nhwc"
     return dx
 
 
 batch_norm_apply.launches = 0
+batch_norm_apply.launches_nhwc = 0
 batch_norm_dx.launches = 0
+batch_norm_dx.launches_nhwc = 0

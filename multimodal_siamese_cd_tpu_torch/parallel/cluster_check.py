@@ -230,13 +230,19 @@ def _step_case(case: dict, device) -> dict:
 
     from .. import train_lib
     from ..models.factory import param_count
-    from . import halo
+    from . import group, halo
 
     cfg = case_cfg(case)
     if "stack" not in case:
         case = dict(case, **_synthetic_batch(*case["synthetic"]))
     model, optimizer = _model(case, cfg, device)
-    step_fn = train_lib.make_train_step(model, optimizer, cfg, case["regime"])
+    # the one-process reference computes in the layout of the world's ranks,
+    # NCHW (the card's step of a world of one is channels-last): it then
+    # differs from the world by the world's reductions, not by bf16 rounding
+    # under other convolution algorithms
+    memory_format = None if group.initialized() else torch.contiguous_format
+    step_fn = train_lib.make_train_step(model, optimizer, cfg, case["regime"],
+                                        memory_format)
     index = _rank_rows(case, cfg, case["stack"].shape[0])
     stack = case["stack"][index].to(device)
     is_labeled = case["is_labeled"][index].to(device)

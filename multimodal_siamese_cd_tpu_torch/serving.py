@@ -134,7 +134,10 @@ def export_serving_bundle(model, cfg, path, buckets=DEFAULT_BUCKETS,
         raise ValueError(f"batch_sizes must be positive, got {batch_sizes}")
     platforms = _platforms(platforms, model)
 
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    # NCHW leaves, strides and all, whatever the model's layout (one trained
+    # on the card holds channels-last weights): one artifact for either
+    state = {k: v.detach().cpu().clone(memory_format=torch.contiguous_format)
+             for k, v in model.state_dict().items()}
     if weights_dtype == "bf16":
         state = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
                  for k, v in state.items()}

@@ -4,6 +4,12 @@ The supervised, semi-supervised and dual-task steps: the wire stack is cast
 to the compute dtype and augmented on the device, the model runs in train
 mode (bf16 autocast on the card, fp32 params; fp32 on the CPU), the losses
 are taken on fp32 logits, and AdamW updates the parameters in place.
+
+The step's activations are laid out as :func:`step_memory_format` decides
+from what it can observe: channels-last on the card in a world of one rank
+with no height shards (cuDNN's convolutions compute in NHWC, so they then
+need no transposes, and BatchNorm's kernels take NHWC), NCHW everywhere
+else. Logical shapes stay ``(B, C, H, W)`` at every function.
 """
 
 from __future__ import annotations
@@ -50,9 +56,39 @@ def stack_layout(cfg) -> dict:
     }
 
 
-def split_stack(stack: torch.Tensor, layout: dict):
-    """Split the NCHW stack into model inputs and float32 label planes
-    ``(x_t1, x_t2, y_change, y_sem_t1, y_sem_t2)``."""
+def step_memory_format(device, world: int, space_shards: int) -> torch.memory_format:
+    """The memory layout of a training step's activations and weights:
+    ``torch.channels_last`` on a CUDA ``device`` in a world of one rank with
+    no height shards, where the step runs as one captured graph, else
+    ``torch.contiguous_format`` (NCHW: the CPU, whose tests hold the port
+    against the JAX package, worlds of several ranks and height-sharded
+    grids)."""
+    if torch.device(device).type == "cuda" and world == 1 and space_shards == 1:
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def lay_out(model, optimizer, memory_format) -> None:
+    """Put ``model``'s weights in ``memory_format`` and AdamW's moments in
+    their parameters' layout. ``Module.to`` keeps each ``Parameter``
+    object, so ``optimizer`` stays valid; moments already there (a resumed
+    run's loaded state) follow their parameters. :func:`_make_step` calls
+    it once, when it builds a step, and lays that step's inputs out in the
+    same format."""
+    model.to(memory_format=memory_format)
+    for p in model.parameters():
+        state = optimizer.state.get(p, {})
+        for key, value in state.items():
+            if (torch.is_tensor(value) and value.shape == p.shape
+                    and value.stride() != p.stride()):
+                state[key] = torch.empty_like(p, dtype=value.dtype).copy_(value)
+
+
+def split_stack(stack: torch.Tensor, layout: dict,
+                memory_format=torch.contiguous_format):
+    """Split the NCHW stack into model inputs, dense in ``memory_format``,
+    and float32 label planes ``(x_t1, x_t2, y_change, y_sem_t1,
+    y_sem_t2)``."""
     n_s1, n_s2, n_img = layout["n_s1"], layout["n_s2"], layout["n_img"]
     s1_t1 = stack[:, :n_s1]
     s1_t2 = stack[:, n_s1:2 * n_s1]
@@ -71,7 +107,8 @@ def split_stack(stack: torch.Tensor, layout: dict):
     else:
         x_t1 = torch.cat([s1_t1, s2_t1], dim=1)
         x_t2 = torch.cat([s1_t2, s2_t2], dim=1)
-    return (x_t1.contiguous(), x_t2.contiguous(), y_change, y_sem_t1,
+    return (x_t1.contiguous(memory_format=memory_format),
+            x_t2.contiguous(memory_format=memory_format), y_change, y_sem_t1,
             y_sem_t2)
 
 
@@ -133,7 +170,7 @@ def augment(stack: torch.Tensor, cfg, layout: dict, dtype: torch.dtype,
     return _augmented(stack, layout, dtype, decisions, rows)
 
 
-def _make_step(model, optimizer, cfg, losses_of):
+def _make_step(model, optimizer, cfg, losses_of, memory_format=None):
     """One optimizer step around ``losses_of(outputs, is_labeled, y_change,
     y_sem_t1, y_sem_t2) -> {"loss": ..., ...}`` (fp32 scalars; ``loss`` is
     the one differentiated).
@@ -200,7 +237,12 @@ def _make_step(model, optimizer, cfg, losses_of):
     height) blocks, the micro-batches split over the data axis alone, and
     the gradient all-reduce sums over the whole world. BatchNorm groups
     follow the data axis (the JAX package's ``bn_group_count``): without
-    sync-BN a column's space ranks share its statistics."""
+    sync-BN a column's space ranks share its statistics.
+
+    Building the step puts the model's weights and AdamW's moments in
+    ``memory_format`` (:func:`lay_out`), by default the layout
+    :func:`step_memory_format` gives for the device and the world; each
+    step lays its inputs out in it too."""
     accum = int(cfg.TRAINER.get("GRAD_ACCUM", 1))
     layout = stack_layout(cfg)
     device = next(model.parameters()).device
@@ -208,6 +250,9 @@ def _make_step(model, optimizer, cfg, losses_of):
     world = group.world_size()
     grid = group.grid(group.space_shards(cfg))
     data, column, n_space = grid.data_size, grid.data_index, grid.space_size
+    if memory_format is None:
+        memory_format = step_memory_format(device, world, n_space)
+    lay_out(model, optimizer, memory_format)
     bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     # the model's BatchNorms (the factory set them from MODEL.SYNC_BN) decide
     sync_bn = all(m.sync for m in bns)
@@ -246,7 +291,7 @@ def _make_step(model, optimizer, cfg, losses_of):
         optimizer.zero_grad(set_to_none=True)
         micro = []
         for part, lab in zip(stack_aug.chunk(accum), labs):
-            x_t1, x_t2, *labels = split_stack(part, layout)
+            x_t1, x_t2, *labels = split_stack(part, layout, memory_format)
             kwargs = {}
             if draws_dropout:
                 kwargs["generator"] = dropout
@@ -345,7 +390,14 @@ def _reduce_window_metrics(metrics: list) -> dict:
     }
 
 
-def make_supervised_train_step(model, optimizer, cfg):
+def _layout(memory_format) -> tuple:
+    """:func:`_make_step`'s optional last argument: ``(memory_format,)``, or
+    nothing for :func:`step_memory_format`'s layout (a stand-in for
+    ``_make_step`` may then take its first four arguments alone)."""
+    return () if memory_format is None else (memory_format,)
+
+
+def make_supervised_train_step(model, optimizer, cfg, memory_format=None):
     """Supervised change-detection step (reference train_supervised.py:63-77;
     the JAX package's ``make_supervised_train_step``):
     ``loss = criterion(logits, y_change)``. Metrics ``{"loss"}``; see
@@ -355,10 +407,10 @@ def make_supervised_train_step(model, optimizer, cfg):
     def losses_of(logits, is_labeled, y_change, y_sem_t1, y_sem_t2) -> dict:
         return {"loss": criterion(logits.float(), y_change)}
 
-    return _make_step(model, optimizer, cfg, losses_of)
+    return _make_step(model, optimizer, cfg, losses_of, *_layout(memory_format))
 
 
-def make_dualtask_train_step(model, optimizer, cfg):
+def make_dualtask_train_step(model, optimizer, cfg, memory_format=None):
     """Dual-task step (the JAX package's ``make_dualtask_train_step``, the
     intended semantics of the reference's train_supervised_dualtask.py:
     64-92): ``loss = (change_loss + (sem_t1_loss + sem_t2_loss) / 2) / 2``.
@@ -374,10 +426,10 @@ def make_dualtask_train_step(model, optimizer, cfg):
         return {"loss": (change_loss + sem_loss) / 2.0,
                 "change_loss": change_loss, "sem_loss": sem_loss}
 
-    return _make_step(model, optimizer, cfg, losses_of)
+    return _make_step(model, optimizer, cfg, losses_of, *_layout(memory_format))
 
 
-def make_semisupervised_train_step(model, optimizer, cfg):
+def make_semisupervised_train_step(model, optimizer, cfg, memory_format=None):
     """Cross-modal consistency step (reference train_semisupervised.py:
     66-118; the JAX package's ``make_semisupervised_train_step``), for a
     three-head model: ``whatevernet``, ``whatevernet2``, or
@@ -428,7 +480,7 @@ def make_semisupervised_train_step(model, optimizer, cfg):
             "n_notlabeled": unlab.sum(),
         }
 
-    return _make_step(model, optimizer, cfg, losses_of)
+    return _make_step(model, optimizer, cfg, losses_of, *_layout(memory_format))
 
 
 _STEPS = {"supervised": make_supervised_train_step,
@@ -436,13 +488,15 @@ _STEPS = {"supervised": make_supervised_train_step,
           "dualtask": make_dualtask_train_step}
 
 
-def make_train_step(model, optimizer, cfg, regime: str):
+def make_train_step(model, optimizer, cfg, regime: str, memory_format=None):
     """The step of ``regime``: 'supervised', 'semisupervised' or
-    'dualtask'."""
+    'dualtask', in ``memory_format`` (default: :func:`step_memory_format`'s
+    rule; a one-process reference of a world of several ranks gives that
+    world's layout, :mod:`.parallel.cluster_check`)."""
     if regime not in _STEPS:
         raise ValueError(f"unknown training regime {regime!r}; "
                          f"known: {sorted(_STEPS)}")
-    return _STEPS[regime](model, optimizer, cfg)
+    return _STEPS[regime](model, optimizer, cfg, memory_format)
 
 
 # --------------------------------------------------------------------------

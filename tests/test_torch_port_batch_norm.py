@@ -18,7 +18,14 @@ level of batch 8 and 16 and at ragged shapes, in bf16 and float32, also
 inside a captured CUDA graph; every element of an output written, and a
 width the plane does not take refused; the module bit-equal to the former module;
 and count one launch of each kernel per BatchNorm call of a siameseunet
-step. Here, without a card, those skip inside the test.
+step. The channels-last kernels (the training step's layout on the card)
+are held bit-equal to the NCHW kernels on the same values at the same
+shapes, at channel counts that are no multiple of 8 and at views off the
+16-byte alignment, also inside a captured CUDA graph; and one captured
+siameseunet and whatevernet step at full width launches every BatchNorm
+kernel in channels-last, makes no layout copy and leaves no cuDNN layout
+transpose in its replay's profiler trace. Here, without a card, those skip
+inside the test.
 """
 
 import pytest
@@ -370,3 +377,147 @@ def test_cuda_siameseunet_step_launches_the_kernels_at_every_batchnorm():
     assert torch.isfinite(torch.as_tensor(loss)).all()
     assert len(bns) == 18      # 5 encoder and 4 decoder DoubleConvs, 2 each
     assert tuple(a - b for a, b in zip(after, before)) == (56, 28, 28)
+
+
+# --- channels-last on the card -------------------------------------------------
+
+CL = torch.channels_last
+# channel counts that are no multiple of 8: the scalar path
+NHWC_RAGGED = [(2, 12, 9, 7), (2, 20, 8, 8), (3, 5, 7, 9), (2, 3, 10, 10), (1, 3, 17, 19)]
+
+
+def _nhwc_counts():
+    return (batch_norm.batch_norm_apply.launches_nhwc,
+            batch_norm.batch_norm_dx.launches_nhwc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(b, *s) for b in (8, 16) for s in LEVELS] + NHWC_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_nhwc_kernels_are_bit_equal_to_the_nchw_kernels(shape, dtype):
+    """The channels-last kernels on the channels-last copy of the values
+    give the NCHW kernels' bits, in channels-last, one channels-last launch
+    each; outputs filled with NaN before a launch are written whole."""
+    dev = _card()
+    x, dy, mean, scale, bias, a, b = _kernel_cases(shape, dtype, sum(shape) + 1, dev)
+    xc, dyc = x.contiguous(memory_format=CL), dy.contiguous(memory_format=CL)
+    before = _nhwc_counts()
+    y = batch_norm.batch_norm_apply(xc, mean, scale, bias)
+    dx = batch_norm.batch_norm_dx(dyc, xc, mean, a, b, scale)
+    assert _nhwc_counts() == (before[0] + 1, before[1] + 1)
+    assert y.is_contiguous(memory_format=CL) and dx.is_contiguous(memory_format=CL)
+    want_y = batch_norm.batch_norm_apply(x, mean, scale, bias)
+    want_dx = batch_norm.batch_norm_dx(dy, x, mean, a, b, scale)
+    assert torch.equal(y, want_y) and torch.equal(dx, want_dx)
+    assert torch.equal(y, batch_norm.batch_norm_apply_reference(xc, mean, scale, bias))
+    y.fill_(float("nan"))
+    dx.fill_(float("nan"))
+    batch_norm.launch_apply(xc, mean, scale, bias, y)
+    batch_norm.launch_dx(dyc, xc, mean, a, b, scale, dx)
+    assert torch.equal(y, want_y) and torch.equal(dx, want_dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_nhwc_kernels_take_views_off_the_vector_alignment(dtype):
+    """Channels-last views one element into a buffer: the scalar path,
+    still bit-equal to the NCHW kernels."""
+    dev = _card()
+    shape = (2, 16, 8, 8)
+    x, dy, mean, scale, bias, a, b = _kernel_cases(shape, dtype, 13, dev)
+    views = []
+    for t in (x, dy):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        nhwc = buf[1:].view(shape[0], shape[2], shape[3], shape[1])
+        nhwc.copy_(t.permute(0, 2, 3, 1))
+        views.append(nhwc.permute(0, 3, 1, 2))
+    xv, dyv = views
+    assert xv.is_contiguous(memory_format=CL) and xv.data_ptr() % 16
+    assert torch.equal(batch_norm.batch_norm_apply(xv, mean, scale, bias),
+                       batch_norm.batch_norm_apply(x, mean, scale, bias))
+    assert torch.equal(batch_norm.batch_norm_dx(dyv, xv, mean, a, b, scale),
+                       batch_norm.batch_norm_dx(dy, x, mean, a, b, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_nhwc_kernels_are_bit_equal_inside_a_cuda_graph(dtype):
+    """The channels-last kernels captured in one CUDA graph and replayed on
+    new inputs copied into the static ones give the NCHW kernels' bits, and
+    ``bn_stats``'s replays (its last block's counters put back each time)
+    the bits of its launches outside the graph."""
+    dev = _card()
+    shape = (8, 64, 64, 64)
+    static = list(_kernel_cases(shape, dtype, 25, dev))
+    static[:2] = [t.contiguous(memory_format=CL) for t in static[:2]]
+    x, dy, mean, scale, bias, a, b = static
+    batch_norm.batch_norm_apply(x, mean, scale, bias)
+    batch_norm.batch_norm_dx(dy, x, mean, a, b, scale)
+    bn_stats.bn_stats(x, x)
+    bn_stats.bn_stats(dy, x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = batch_norm.batch_norm_apply(x, mean, scale, bias)
+        dx = batch_norm.batch_norm_dx(dy, x, mean, a, b, scale)
+        stats = bn_stats.bn_stats(x, x) + bn_stats.bn_stats(dy, x)
+    for seed in (26, 27):
+        fresh = _kernel_cases(shape, dtype, seed, dev)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        fx, fdy, *vectors = fresh
+        fmean, fscale, fbias, fa, fb = vectors
+        assert torch.equal(y, batch_norm.batch_norm_apply(fx, fmean, fscale, fbias))
+        assert torch.equal(dx, batch_norm.batch_norm_dx(fdy, fx, fmean, fa, fb, fscale))
+        fxc, fdyc = (t.contiguous(memory_format=CL) for t in (fx, fdy))
+        want = bn_stats.bn_stats(fxc, fxc) + bn_stats.bn_stats(fdyc, fxc)
+        assert all(torch.equal(g, w) for g, w in zip(stats, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type, config, regime, per_step", [
+    ("siameseunet", "siamese", "supervised", (56, 28, 28)),
+    ("whatevernet", "siamese_mmcr_alpha0500", "semisupervised", (112, 56, 56)),
+])
+def test_cuda_captured_step_runs_channels_last_without_transposes(model_type, config,
+                                                                  regime, per_step):
+    """One step of the full-width model (topology [64, 128, 256, 512],
+    batch 2, 64 px crops, bf16) through ``make_scanned_train_step`` on the
+    card: the first call's eager step and capture launch every
+    ``bn_stats``, ``batch_norm_apply`` and ``batch_norm_dx`` call through
+    its channels-last kernel (2 x ``per_step``) and make no layout copy; the
+    replayed step's profiler trace holds the channels-last kernels and no
+    cuDNN ``nchwToNhwc`` / ``nhwcToNchw`` transpose."""
+    dev = _card()
+    from multimodal_siamese_cd_tpu_torch import profile_step, train_lib
+    from multimodal_siamese_cd_tpu_torch.config import load_cfg
+    from multimodal_siamese_cd_tpu_torch.models.factory import create_network
+
+    cfg = load_cfg(config)
+    cfg.MODEL.TYPE = model_type
+    assert list(cfg.MODEL.TOPOLOGY) == [64, 128, 256, 512]
+    model = create_network(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+    window = train_lib.make_scanned_train_step(model, train_lib.make_optimizer(model, cfg),
+                                               cfg, regime)
+    assert window.mode == "graph"
+    stacks = torch.rand((2, 1, 2, 15, 64, 64), generator=torch.Generator().manual_seed(2))
+    stacks[..., 12:, :, :] = (stacks[..., 12:, :, :] > 0.7).float()
+    stacks, labs = stacks.to(dev), torch.tensor([[[1.0, 0.0]]] * 2, device=dev)
+    counts = lambda: (bn_stats.bn_stats.launches_nhwc,  # noqa: E731
+                      *_nhwc_counts(), bn_stats.bn_stats.launches,
+                      batch_norm.batch_norm_apply.launches,
+                      batch_norm.batch_norm_dx.launches)
+    before, copies = counts(), BatchNorm2d.layout_copies
+    window(stacks[0], labs[0], 0)
+    torch.cuda.synchronize()
+    made = tuple(a - b for a, b in zip(counts(), before))
+    assert made == tuple(2 * n for n in per_step) * 2
+    assert BatchNorm2d.layout_copies == copies
+    kernels = profile_step.trace(lambda: window(stacks[1], labs[1], 1), dev)["kernels"]
+    names = [n.lower() for n in kernels]
+    assert any("bn_stats_partial_nhwc" in n for n in names)
+    assert any("batch_norm_dx_nhwc" in n for n in names)
+    transposes = [n for n in names if "nchwtonhwc" in n or "nhwctonchw" in n]
+    assert not transposes, transposes

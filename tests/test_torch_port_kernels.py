@@ -8,8 +8,9 @@ machine with the card, where JAX is not used:
 
 There the ``cuda``-marked tests hold each CUDA kernel against its plain
 version (confusion: exact integer equality; bn_stats: within 1e-5 of
-Σ|a·b| per channel; conv3x3: atol 1e-4 on float32 inputs, one bf16 ulp
-plus 1e-4 on bf16 inputs; each bit-equal from launch to launch); here,
+Σ|a·b| per channel, in NCHW and in channels-last; conv3x3: atol 1e-4 on
+float32 inputs, one bf16 ulp plus 1e-4 on bf16 inputs; each bit-equal from
+launch to launch); here,
 without a card, they skip inside the test. The other tests check the wrappers'
 contracts on the CPU.
 """
@@ -115,10 +116,14 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 # wrapper declares
 ENTRY_POINTS = {
     "mscd_bn_stats": ("bn_stats", bn_stats.ARGTYPES),
+    "mscd_bn_stats_nhwc": ("bn_stats", bn_stats.NHWC_ARGTYPES),
+    "mscd_bn_stats_nhwc_chunks": ("bn_stats", bn_stats.NHWC_CHUNKS_ARGTYPES),
     "mscd_confusion_counts": ("confusion", confusion.ARGTYPES),
     "mscd_strict_confusion_counts": ("confusion", confusion.ARGTYPES),
     "mscd_batch_norm_apply": ("batch_norm", batch_norm.APPLY_ARGTYPES),
     "mscd_batch_norm_dx": ("batch_norm", batch_norm.DX_ARGTYPES),
+    "mscd_batch_norm_apply_nhwc": ("batch_norm", batch_norm.APPLY_NHWC_ARGTYPES),
+    "mscd_batch_norm_dx_nhwc": ("batch_norm", batch_norm.DX_NHWC_ARGTYPES),
     "mscd_conv3x3": ("conv3x3", conv3x3.ARGTYPES),
 }
 
@@ -214,6 +219,53 @@ def test_cuda_bn_stats_matches_plain_and_is_deterministic(shape, dtype):
         for g, h, r, lim in zip(got, again, ref, limits):
             assert torch.equal(g, h)
             assert bool(((g.double() - r).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 64, 256, 256), (16, 64, 256, 256), (8, 512, 16, 16),
+                                   (16, 512, 16, 16), (8, 128, 128, 128), (2, 12, 10, 10),
+                                   (1, 3, 17, 19), (3, 20, 7, 9)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_nhwc_bn_stats_matches_plain_and_is_deterministic(shape, dtype):
+    """Needs the card: the channels-last kernels (vector path, and the
+    scalar path at channel counts that are no multiple of 8), a is b and
+    not, within the NCHW kernel's float64 limit |kernel - float64 plain| <=
+    1e-5 · Σ|a·b| per channel; two launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the bn_stats kernel runs only there")
+    a, b = (t.cuda().contiguous(memory_format=torch.channels_last)
+            for t in _bn_inputs(shape, dtype, seed=sum(shape) + 1))
+    for bb in (a, b):
+        before = bn_stats.bn_stats.launches_nhwc
+        got = bn_stats.bn_stats(a, bb)
+        assert bn_stats.bn_stats.launches_nhwc == before + 1
+        again = bn_stats.bn_stats(a, bb)
+        ref = bn_stats.bn_stats_reference(a, bb, torch.float64)
+        limits = (1e-5 * a.double().abs().sum(dim=(0, 2, 3)),
+                  1e-5 * (a.double() * bb.double()).abs().sum(dim=(0, 2, 3)))
+        for g, h, r, lim in zip(got, again, ref, limits):
+            assert torch.equal(g, h)
+            assert bool(((g.double() - r).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+def test_cuda_nhwc_bn_stats_takes_a_view_off_the_vector_alignment():
+    """Needs the card: a channels-last view one element into a buffer takes
+    the scalar path, within the float64 limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the bn_stats kernel runs only there")
+    a, _ = _bn_inputs((2, 16, 8, 8), torch.bfloat16, seed=3)
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")
+    view = buf[1:].view(2, 8, 8, 16)
+    view.copy_(a.permute(0, 2, 3, 1))
+    av = view.permute(0, 3, 1, 2)
+    assert av.is_contiguous(memory_format=torch.channels_last) and av.data_ptr() % 16
+    got = bn_stats.bn_stats(av, av)
+    ref = bn_stats.bn_stats_reference(a.cuda(), a.cuda(), torch.float64)
+    lim = 1e-5 * a.double().square().sum(dim=(0, 2, 3)).cuda()
+    assert bool(((got[1].double() - ref[1]).abs() <= lim).all())
+    assert bool(((got[0].double() - ref[0]).abs()
+                 <= 1e-5 * a.double().abs().sum(dim=(0, 2, 3)).cuda()).all())
 
 
 @pytest.mark.cuda
